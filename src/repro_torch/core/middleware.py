@@ -1,0 +1,121 @@
+"""Middleware pipeline: composable batch stages in front of routing.
+
+The paper frames MIDAS as *middleware* -- stages between incoming
+metadata requests and the routing decision.  Each stage sees the tick's
+request batch, may absorb requests (serve them at the proxy) by clearing
+their mask bits, and carries its own state across ticks.  Stages also
+get a slow-loop hook on the paper's T_slow cadence.
+
+``SimConfig.middleware`` is a tuple of registered stage names applied
+in order.  The port carries the cooperative cache (``"cache"``); the
+gossip-delayed ``"fleet_cache"`` comes with the fleet (ROADMAP §1
+item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple, Type
+
+import torch
+
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import registry as registry_lib
+from repro_torch.core.controllers.base import T_SLOW_MS, Knobs
+
+
+class BatchView(NamedTuple):
+    """One tick's request batch, as seen by a middleware stage."""
+
+    keys: torch.Tensor      # (R,) int64 namespace keys
+    mask: torch.Tensor      # (R,) bool validity (may be narrowed upstream)
+    is_write: torch.Tensor  # (R,) bool metadata-mutating ops
+    now_ms: torch.Tensor    # () float32 tick clock
+
+
+class Middleware:
+    """Base class for registered pipeline stages.
+
+    ``init(cfg, device) -> state`` builds the stage's carried state.
+    ``on_batch(state, batch, cfg) -> (state, mask, absorbed)`` processes
+    one tick: the returned mask replaces ``batch.mask`` downstream, and
+    ``absorbed`` is the () float32 count served at the proxy.
+    ``on_slow(state, cfg, knobs) -> state`` runs on the T_slow cadence.
+    """
+
+    name: str = "?"
+
+    def init(self, cfg, device=None) -> Any:
+        return ()
+
+    def on_batch(
+        self, state: Any, batch: BatchView, cfg
+    ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
+        absorbed = torch.zeros((), dtype=torch.float32,
+                               device=batch.mask.device)
+        return state, batch.mask, absorbed
+
+    def on_slow(self, state: Any, cfg, knobs: Knobs) -> Any:
+        return state
+
+
+REGISTRY = registry_lib.Registry("middleware")
+
+
+def register(name: str):
+    """Class decorator registering a Middleware stage under ``name``."""
+    return REGISTRY.register(name)
+
+
+def unregister(name: str) -> None:
+    REGISTRY.unregister(name)
+
+
+def available() -> Tuple[str, ...]:
+    return REGISTRY.available()
+
+
+def get_class(name: str) -> Type[Middleware]:
+    return REGISTRY.get_class(name)
+
+
+def get(name: str) -> Middleware:
+    return REGISTRY.get(name)
+
+
+@register("cache")
+class CooperativeCache(Middleware):
+    """The paper's cooperative metadata cache as a pipeline stage.
+
+    Read hits within the validity horizon are absorbed at the proxy;
+    writes always pass through (bumping versions / invalidating leases).
+    The slow hook retunes the aggregate TTL from the hazard estimator.
+    """
+
+    def init(self, cfg, device=None) -> cache_lib.CacheState:
+        return cache_lib.init_cache(cfg.N, device=device)
+
+    def on_batch(self, state: cache_lib.CacheState, batch: BatchView, cfg):
+        state, hit = cache_lib.lookup_batch(
+            state,
+            batch.keys,
+            batch.mask,
+            batch.is_write,
+            batch.now_ms,
+            mode=cfg.cache_mode,
+            lease_ms=cfg.lease_ms,
+            rtt_ms=cfg.rtt_ms,
+            p_star=cfg.p_star,
+        )
+        # hits never reach the servers
+        return state, batch.mask & ~hit, hit.sum().to(torch.float32)
+
+    def on_slow(self, state: cache_lib.CacheState, cfg, knobs: Knobs):
+        lease = cfg.lease_ms if cfg.cache_mode == "lease" else float("inf")
+        return cache_lib.slow_update(
+            state,
+            T_SLOW_MS,
+            cfg.rtt_ms,
+            lease,
+            cfg.p_star,
+            ttl_scale=knobs.ttl_scale,
+        )

@@ -1,0 +1,174 @@
+"""Policy protocol, route context, and the policy registry.
+
+A *policy* is the routing stage of the MIDAS middleware pipeline: given
+a wave of requests and the proxies' (stale) view of server state, it
+assigns each request to a metadata server.  Policies register by name;
+the simulator resolves ``cfg.policy`` through the registry.
+
+Protocol
+--------
+``Policy.init(cfg, ring, device) -> state`` builds the policy's carried
+state (``()`` for stateless policies).  ``Policy.draws(keys, shape)``
+makes the policy's random draws for many waves at once: ``keys`` are
+per-wave PRNG keys ``(..., 2)`` and the result is a :class:`WaveDraws`
+of ``(..., *shape)`` tensors (or ``None`` for a policy that draws
+nothing).  The engine calls it ONCE for the whole horizon before the
+tick loop, with exactly the keys the reference engine hands each wave,
+so the draws are bit-for-bit the reference's and no random bits are
+made inside a tick.
+``Policy.route(state, ctx) -> (state, assign, RouteStats)`` routes one
+wave; ``ctx.draws`` holds that wave's slice of the draws.  ``assign``
+is ``(R,)`` int32 server ids (-1 for masked-out slots).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple, Type
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core import registry as registry_lib
+from repro_torch.core.controllers.base import Knobs
+
+
+class RouteContext(NamedTuple):
+    """One routing wave, as seen by a policy."""
+
+    keys: torch.Tensor  # (R,) int64 namespace keys
+    mask: torch.Tensor  # (R,) bool validity
+    feas: torch.Tensor  # (R, d_max) int32 feasible set; slot 0 = primary
+    L_view: torch.Tensor  # (m,) float32 stale EWMA queue + own sends
+    p50_view: torch.Tensor  # (m,) float32 stale EWMA p50 (ms)
+    knobs: Knobs  # controller-emitted knob bundle
+    now_ms: torch.Tensor  # () float32 tick clock
+    draws: Optional["WaveDraws"]  # this wave's slice of the draws
+    m: int  # number of servers
+    fixed_d: int  # d for non-adaptive power-of-d
+    # resolved routing implementation: "ref" (plain PyTorch) or "cuda"
+    # (the route_select kernel; bit-identical by contract)
+    route_impl: str = "ref"
+
+    @property
+    def primary(self) -> torch.Tensor:
+        """Ring-primary server per request (feasible-set slot 0)."""
+        return self.feas[:, 0]
+
+
+class WaveDraws(NamedTuple):
+    """A wave's random draws: the candidate ranking and tie scores."""
+
+    rank: torch.Tensor  # (..., d_max) int8 candidate rank, primary = 0
+    tie: torch.Tensor  # (..., d_max) float32 tie-break scores
+
+
+class RouteStats(NamedTuple):
+    """Per-wave steering telemetry; summed across waves into TickOut."""
+
+    steered: torch.Tensor  # () float32 requests steered off primary
+    eligible: torch.Tensor  # () float32 steer-eligible requests
+    dV: torch.Tensor  # () float32 Lyapunov ΔV of admitted steers
+
+    @classmethod
+    def zeros(cls, device=None) -> "RouteStats":
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return cls(steered=z, eligible=z, dV=z)
+
+    def __add__(self, other: "RouteStats") -> "RouteStats":
+        return RouteStats(
+            steered=self.steered + other.steered,
+            eligible=self.eligible + other.eligible,
+            dV=self.dV + other.dV,
+        )
+
+
+def steering_dv(ctx: RouteContext, assign: torch.Tensor) -> torch.Tensor:
+    """ΔV contribution of steering away from primary (paper eq. 2)."""
+    prim = ctx.primary.long()
+    moved = ctx.mask & (assign != ctx.primary) & (assign >= 0)
+    dv = 2.0 * (ctx.L_view[assign.clamp(min=0).long()]
+                - ctx.L_view[prim]) + 2.0
+    return torch.where(moved, dv, 0.0).sum()
+
+
+class Policy:
+    """Base class for registered routing policies.
+
+    ``adaptive = True`` marks a policy that consumes the warmup-derived
+    control targets (§III-B), so ``simulate`` runs the warmup pass.
+    """
+
+    name: str = "?"
+    adaptive: bool = False
+
+    def init(self, cfg, ring, device=None) -> Any:
+        """Build the policy's carried state (default: stateless)."""
+        return ()
+
+    def draws(
+        self, keys: torch.Tensor, shape: Tuple[int, ...]
+    ) -> Optional[WaveDraws]:
+        """Random draws for a batch of waves (default: none)."""
+        return None
+
+    def route(
+        self, state: Any, ctx: RouteContext
+    ) -> Tuple[Any, torch.Tensor, RouteStats]:
+        raise NotImplementedError
+
+
+REGISTRY = registry_lib.Registry("policy")
+
+
+def register(name: str):
+    """Class decorator: ``@register("my_policy")`` adds a Policy
+    subclass under ``name`` (usable as ``SimConfig(policy=name)``)."""
+    return REGISTRY.register(name)
+
+
+def unregister(name: str) -> None:
+    REGISTRY.unregister(name)
+
+
+def available() -> Tuple[str, ...]:
+    return REGISTRY.available()
+
+
+def get_class(name: str) -> Type[Policy]:
+    return REGISTRY.get_class(name)
+
+
+def get(name: str) -> Policy:
+    return REGISTRY.get(name)
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+
+def sample_ranks(scores: torch.Tensor) -> torch.Tensor:
+    """Rank of each of the d_max slots in the candidate ordering, with
+    slot 0 (the primary) first: the stable argsort-of-argsort of
+    ``jax.random.uniform`` scores with slot 0 set to -1, computed by
+    counting (no sort kernel).  Returns int8 ``(..., d_max)``."""
+    s = scores.clone()
+    s[..., 0] = -1.0
+    d_max = s.shape[-1]
+    lower = torch.ones(d_max, d_max, dtype=torch.bool,
+                       device=s.device).tril(-1)
+    a, b = s[..., :, None], s[..., None, :]
+    # slot k ranks before slot j when its score is smaller, or equal
+    # with k < j (a stable sort keeps ties in slot order)
+    before = (b < a) | ((b == a) & lower)
+    return before.sum(-1).to(torch.int8)
+
+
+def sample_candidates(rng, feas: torch.Tensor, d) -> torch.Tensor:
+    """Mark which of the d_max feasible slots are sampled (size-d subset).
+
+    Slot 0 (the primary) is always in S; the remaining d-1 picks are a
+    uniform subset of slots 1..d_max-1 via random ranking -- the same
+    draw as the reference's ``sample_candidates(rng, feas, d)``."""
+    scores = prng.uniform(rng, tuple(feas.shape))
+    return sample_ranks(scores) < d

@@ -1,0 +1,648 @@
+"""Queue-network simulator for the MIDAS evaluation (paper §VI).
+
+m metadata servers, each a FIFO queue with constant 100 ms service time
+(the paper's stress bound).  Time advances in dt_ms ticks; each tick
+first runs the middleware pipeline (the cooperative cache absorbs read
+hits at the proxy), then routes the surviving batch in ``n_groups``
+sequential waves with the policy resolved from the registry, applies
+service, refreshes the (delayed) telemetry, and runs the fast/slow
+control loops on their paper cadences.  Every wave sees the stale EWMA
+telemetry *plus* the proxies' own sends from earlier waves of the tick.
+
+The tick loop is a Python loop with the tick clock as a Python int, so
+the fast and slow cadences are host ``if``s.  Nothing inside a tick
+reads a device value back to the host: knobs stay 0-d device tensors.
+Work that does not depend on the simulation state is hoisted out of the
+loop, as the reference engine hoists it out of its scan
+(``_scan_inputs``): the feasible sets of the whole horizon, and every
+random draw -- the per-tick key chain is walked once on the host and the
+per-wave draws for all ticks are made in a few batched threefry calls,
+bit-for-bit the reference's.
+
+``simulate`` runs one config and returns a :class:`SimResult` with the
+paper metrics.  The engine runs on the CUDA device unless the caller
+passes ``device="cpu"``.  Configurations that need a part not ported
+yet (fleet routing, faults, the guard, ablations, the unrolled
+reference engine) raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import controllers as ctrl_lib
+from repro_torch.core import hashring, prng, telemetry
+from repro_torch.core import middleware as mw_lib
+from repro_torch.core import policies as policy_lib
+from repro_torch.core import registry as registry_lib
+from repro_torch.core.controllers.base import Knobs, Signals
+from repro_torch.core.policies.base import (
+    RouteContext,
+    RouteStats,
+    WaveDraws,
+)
+from repro_torch.core.workloads import Workload, make_workload
+from repro_torch.kernels import common as kernels_common
+
+CONSENSUS_REDUCERS = ("mean", "median", "max")
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP §1 item {item})"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    m: int = 8  # metadata servers
+    P: int = 8  # independent proxies (fleet size)
+    N: int = 4096  # namespace size (keys)
+    dt_ms: float = 50.0
+    service_ms: float = 100.0  # paper: constant 100 ms per RPC
+    policy: str = "midas"  # any name in policies.available()
+    d_max: int = 4
+    V: int = 64  # virtual nodes per server
+    rtt_ms: float = 2.0
+    n_groups: int = 8  # routing waves per tick
+    middleware: Tuple[str, ...] = ()  # pipeline stages, applied in order
+    cache_enabled: bool = False  # legacy alias for middleware=("cache",)
+    cache_mode: str = "lease"  # lease | ttl_aggregate | ttl_per_key
+    lease_ms: float = 5000.0
+    p_star: float = 1e-4
+    gossip_ms: float = 0.0  # fleet_cache gossip delay (fleet, unported)
+    fleet_routing: bool = False  # per-proxy routing (fleet, unported)
+    fixed_d: int = 2  # d for power_of_d policy
+    controller: str = "hysteresis"
+    consensus: str = "mean"  # mean | median | max (fleet view reducer)
+    ablate: str = ""  # comma-joined subset of controllers.ABLATIONS
+    guard: bool = False  # oscillation guard (unported)
+    faults: Optional[Tuple] = None  # fault schedule (unported)
+    unroll_waves: bool = False  # unrolled reference engine (unported)
+    # wave-routing implementation: "auto" is the CUDA kernel on the card
+    # and the plain version on the CPU; "ref" pins the plain version;
+    # "cuda" forces the kernel -- bit-for-bit with "ref" by contract
+    route_impl: str = "auto"
+    seed: int = 0
+
+    def __post_init__(self):
+        """Eager validation: bad names and sizes fail at construction
+        with the alternatives spelled out."""
+        for name in ("m", "P", "N", "V", "n_groups", "d_max", "fixed_d"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v <= 0:
+                raise ValueError(
+                    f"SimConfig.{name} must be a positive int, got {v!r}"
+                )
+        policy_lib.get_class(self.policy)
+        if "fleet_cache" in self.middleware:
+            raise _unported("the fleet_cache middleware", 9)
+        for stage in self.middleware:
+            registry_lib.validate_choice(
+                stage, "middleware stage", mw_lib.available()
+            )
+        ctrl_lib.get_class(self.controller)
+        registry_lib.validate_choice(
+            self.consensus, "consensus reducer", CONSENSUS_REDUCERS
+        )
+        if ctrl_lib.parse_ablations(self.ablate):
+            raise _unported("ablations", 10)
+        if not isinstance(self.guard, bool):
+            raise ValueError(
+                f"SimConfig.guard must be a bool, got {self.guard!r}"
+            )
+        if self.guard:
+            raise _unported("the oscillation guard", 10)
+        registry_lib.validate_choice(
+            self.cache_mode, "cache_mode", cache_lib.MODES
+        )
+        registry_lib.validate_choice(
+            self.route_impl, "route_impl", kernels_common.ROUTE_IMPLS
+        )
+        if self.gossip_ms < 0:
+            raise ValueError(
+                f"SimConfig.gossip_ms must be >= 0, got {self.gossip_ms!r}"
+            )
+        if self.fleet_routing:
+            raise _unported("fleet routing", 9)
+        if self.faults:
+            raise _unported("fault injection", 11)
+        if self.unroll_waves:
+            raise _unported("the unrolled-waves reference engine", 7)
+
+    @property
+    def t_fast_ticks(self) -> int:
+        return max(int(round(ctrl_lib.T_FAST_MS / self.dt_ms)), 1)
+
+    @property
+    def t_slow_ticks(self) -> int:
+        return max(int(round(ctrl_lib.T_SLOW_MS / self.dt_ms)), 1)
+
+    @property
+    def w_ticks(self) -> int:
+        return max(int(round(ctrl_lib.W_WINDOW_MS / self.dt_ms)), 1)
+
+    @property
+    def serve_per_tick(self) -> float:
+        return self.dt_ms / self.service_ms
+
+    @property
+    def middleware_chain(self) -> Tuple[str, ...]:
+        """Resolved pipeline: the legacy cache flag prepends the cache."""
+        chain = tuple(self.middleware)
+        if self.cache_enabled and "cache" not in chain:
+            chain = ("cache",) + chain
+        return chain
+
+
+class SimState(NamedTuple):
+    L: torch.Tensor  # (m,) float32 queue length
+    L_hat: torch.Tensor  # (m,) float32 EWMA of observed L
+    L_hat_p: torch.Tensor  # (P, m) float32 per-proxy views (fleet)
+    p50_hat: torch.Tensor  # (m,) float32 EWMA p50 (ms)
+    p99_hat: torch.Tensor  # (m,) float32 EWMA p99 (ms)
+    sketch: telemetry.LatencySketch
+    policy: tuple  # policy-owned state (see policies.base)
+    ctrl: ctrl_lib.ControlState  # knobs + targets + controller inner
+    mw: tuple  # per-stage middleware states, chain order
+    win_writes: torch.Tensor  # () float32 writes this T_slow window
+    win_events: torch.Tensor  # () float32 valid requests this window
+    rng: torch.Tensor  # (2,) int64 threefry key
+
+
+class TickOut(NamedTuple):
+    L: torch.Tensor  # (m,) queue snapshot after tick
+    arrivals: torch.Tensor  # (m,) arrivals routed this tick
+    lat_pred: torch.Tensor  # (m,) predicted latency of a new arrival (ms)
+    d: torch.Tensor  # () int32 control knob
+    delta_l: torch.Tensor  # ()
+    f_max: torch.Tensor  # () steering-bucket cap this tick
+    pressure: torch.Tensor  # ()
+    steered: torch.Tensor  # ()
+    eligible: torch.Tensor  # ()
+    cache_hits: torch.Tensor  # () requests absorbed by the pipeline
+    dV: torch.Tensor  # () potential change from steering this tick
+
+
+class SimResult(NamedTuple):
+    queue_timeline: np.ndarray  # (T, m)
+    arrivals: np.ndarray  # (T, m)
+    lat_pred: np.ndarray  # (T, m)
+    d_timeline: np.ndarray  # (T,)
+    delta_l_timeline: np.ndarray
+    pressure: np.ndarray  # (T,)
+    steered: np.ndarray  # (T,)
+    eligible: np.ndarray  # (T,)
+    cache_hits: np.ndarray  # (T,)
+    final_cache: Optional[object]  # CacheState on the run's device
+    config: SimConfig
+    f_max_timeline: Optional[np.ndarray] = None  # (T,) bucket cap
+
+    # ---- paper metrics -------------------------------------------------
+    def mean_queue(self) -> float:
+        return float(self.queue_timeline.mean())
+
+    def worst_case_queue(self, q: float = 99.9) -> float:
+        return float(np.percentile(self.queue_timeline, q))
+
+    def dispersion(self) -> float:
+        """CV of per-server time-averaged queue length (paper §VI-C)."""
+        per_server = self.queue_timeline.mean(axis=0)
+        mu = per_server.mean()
+        if mu < 1e-9:
+            return 0.0
+        return float(per_server.std() / mu)
+
+    def latency_quantiles(self, qs=(50, 99)) -> Tuple[float, ...]:
+        """Arrival-weighted request latency quantiles (ms)."""
+        return telemetry.weighted_quantiles(self.lat_pred, self.arrivals, qs)
+
+
+# ---------------------------------------------------------------------------
+# The tick: middleware pipeline -> wave routing -> dynamics
+# ---------------------------------------------------------------------------
+
+
+def _middlewares(cfg: SimConfig) -> Tuple[mw_lib.Middleware, ...]:
+    return tuple(mw_lib.get(name) for name in cfg.middleware_chain)
+
+
+def _controller(cfg: SimConfig) -> ctrl_lib.Controller:
+    ctrl = ctrl_lib.wrap_ablations(ctrl_lib.get(cfg.controller), cfg.ablate)
+    return ctrl_lib.wrap_guard(ctrl, cfg.guard)
+
+
+def _wave_split(cfg: SimConfig, x: torch.Tensor) -> torch.Tensor:
+    """Reshape a (..., R) batch into (..., G, R/G) contiguous routing
+    waves, padding R to a multiple of G with zeros (False)."""
+    R = x.shape[-1]
+    G = cfg.n_groups
+    pad = (-R) % G
+    if pad:
+        z = torch.zeros(x.shape[:-1] + (pad,), dtype=x.dtype,
+                        device=x.device)
+        x = torch.cat([x, z], dim=-1)
+    return x.reshape(x.shape[:-1] + (G, -1))
+
+
+def _wave_counts(m: int, mask, assign) -> torch.Tensor:
+    """(m,) routed-arrival counts of one wave (masked scatter-add)."""
+    sink = torch.where(mask, assign, 0).long()
+    counts = torch.zeros((m,), dtype=torch.float32, device=mask.device)
+    return counts.index_put_((sink,), mask.to(torch.float32),
+                             accumulate=True)
+
+
+class Horizon(NamedTuple):
+    """Everything a run needs that does not depend on the simulation
+    state, made once before the tick loop."""
+
+    t0: int  # tick clock of the first row
+    now_ms: torch.Tensor  # (T,) float32 tick clock
+    keys: torch.Tensor  # (T, R) int64
+    mask: torch.Tensor  # (T, R) bool
+    is_write: torch.Tensor  # (T, R) bool
+    keysg: torch.Tensor  # (T, G, R/G) int64 keys per wave
+    feasg: torch.Tensor  # (T, G, R/G, d_max) int32 feasible sets
+    rng: torch.Tensor  # (T, 2) state key after each tick's split
+    draws: Optional[WaveDraws]  # (T, G, R/G, d_max) policy draws
+    jitter: torch.Tensor  # (T,) float32 fast-loop jitter in [-1, 1)
+
+
+def _scan_inputs(
+    cfg: SimConfig,
+    ring: hashring.Ring,
+    policy: policy_lib.Policy,
+    rng0: torch.Tensor,
+    keys: torch.Tensor,
+    mask: torch.Tensor,
+    is_write: torch.Tensor,
+    t0: int = 0,
+) -> Horizon:
+    """Hoist the state-independent work of a (T, R) workload grid whose
+    first row is tick ``t0``.
+
+    The reference splits ``state.rng`` into (rng, r_mw, r_route) each
+    tick, folds the wave index into r_route, and draws the policy's
+    randomness and the fast-loop jitter from those keys (r_mw feeds
+    middleware stages that draw; the cache draws nothing).  None of it
+    depends on the simulation state, so the key chain is walked once
+    here (Python ints, on the host) and all draws of the horizon are
+    made in batched calls on the device.
+    """
+    T = keys.shape[0]
+    dev = keys.device
+    k1, k2 = prng.key_ints(rng0)
+    chain = []
+    for _ in range(T):
+        (k1, k2), r_mw, r_route = prng.split_ints(k1, k2, 3)
+        chain.append(((k1, k2), r_mw, r_route))
+    chain = torch.tensor(chain, dtype=torch.int64, device=dev)
+    chain = chain.reshape(T, 3, 2)
+    rng, _, r_route = chain.unbind(1)
+
+    keys = keys.long()
+    keysg = _wave_split(cfg, keys)
+    G, Rg = keysg.shape[-2:]
+    waves = prng.fold_in(
+        r_route[:, None, :], torch.arange(G, device=dev)
+    )  # (T, G, 2)
+    ticks = torch.arange(t0, t0 + T, dtype=torch.float32, device=dev)
+    return Horizon(
+        t0=t0,
+        now_ms=ticks * cfg.dt_ms,
+        keys=keys,
+        mask=mask,
+        is_write=is_write,
+        keysg=keysg,
+        feasg=hashring.feasible_set(ring, keysg, cfg.d_max),
+        rng=rng,
+        draws=policy.draws(waves, (Rg, cfg.d_max)),
+        jitter=prng.uniform(prng.fold_in(rng, 3), (), -1.0, 1.0),
+    )
+
+
+class _Consts(NamedTuple):
+    """Device constants made once per run (no host copy per tick)."""
+
+    zero: torch.Tensor  # () float32 0
+    avail: torch.Tensor  # () float32 1: every server detected live
+    member: torch.Tensor  # (m,) float32 1
+
+
+def _route_waves(
+    cfg: SimConfig,
+    policy: policy_lib.Policy,
+    state: SimState,
+    knobs: Knobs,
+    now_ms: torch.Tensor,
+    keysg: torch.Tensor,
+    maskg: torch.Tensor,
+    feasg: torch.Tensor,
+    draws: Optional[WaveDraws],
+    impl: str,
+    consts: _Consts,
+):
+    """Route one tick's G waves in order; each wave sees the stale EWMA
+    view plus this tick's own sends from the earlier waves."""
+    ps = state.policy
+    sent = torch.zeros_like(state.L)
+    stats = RouteStats(consts.zero, consts.zero, consts.zero)
+    for g in range(keysg.shape[0]):
+        ctx = RouteContext(
+            keys=keysg[g],
+            mask=maskg[g],
+            feas=feasg[g],
+            L_view=state.L_hat + sent,
+            p50_view=state.p50_hat,
+            knobs=knobs,
+            now_ms=now_ms,
+            draws=None if draws is None else WaveDraws(
+                *(x[g] for x in draws)
+            ),
+            m=cfg.m,
+            fixed_d=cfg.fixed_d,
+            route_impl=impl,
+        )
+        ps, assign, st = policy.route(ps, ctx)
+        sent = sent + _wave_counts(cfg.m, maskg[g], assign)
+        stats = stats + st
+    return ps, sent, stats
+
+
+def _signals(
+    cfg: SimConfig, consts: _Consts, s: SimState, B, p99, jitter
+) -> Signals:
+    return Signals(
+        B=B,
+        p99=p99,
+        L_hat=s.L_hat,
+        views_p=s.L_hat_p,
+        write_mix=s.win_writes / torch.clamp(s.win_events, min=1.0),
+        jitter=jitter,
+        rtt_ms=cfg.rtt_ms,
+        avail=consts.avail,
+        member=consts.member,
+    )
+
+
+def _ingest(cfg, controller, consts, s: SimState, jitter) -> SimState:
+    """Fast loop: telemetry ingest, then the controller's fast step."""
+    p50_o, p99_o = telemetry.sketch_quantiles(s.sketch)
+    a = ctrl_lib.ALPHA_FAST
+    s = s._replace(
+        L_hat=telemetry.ewma(s.L_hat, s.L, a),
+        p50_hat=telemetry.ewma(s.p50_hat, p50_o, a),
+        p99_hat=telemetry.ewma(s.p99_hat, p99_o, a),
+    )
+    B = telemetry.imbalance(s.L_hat)
+    ctrl, _ = controller.fast(
+        s.ctrl, _signals(cfg, consts, s, B, s.p99_hat.max(), jitter)
+    )
+    return s._replace(ctrl=ctrl)
+
+
+def _slow(cfg, controller, mws, consts, s: SimState) -> SimState:
+    """Slow loop: the controller's slow step and the stages' retunes;
+    the write-mix window restarts."""
+    B = telemetry.imbalance(s.L_hat)
+    ctrl, k = controller.slow(
+        s.ctrl,
+        _signals(cfg, consts, s, B, s.p99_hat.max(), consts.zero),
+    )
+    return s._replace(
+        ctrl=ctrl,
+        mw=tuple(mw.on_slow(ms, cfg, k) for mw, ms in zip(mws, s.mw)),
+        win_writes=torch.zeros_like(s.win_writes),
+        win_events=torch.zeros_like(s.win_events),
+    )
+
+
+def _tick(
+    cfg: SimConfig,
+    policy: policy_lib.Policy,
+    mws: Tuple[mw_lib.Middleware, ...],
+    controller: ctrl_lib.Controller,
+    impl: str,
+    consts: _Consts,
+    hz: Horizon,
+    t: int,
+    state: SimState,
+) -> Tuple[SimState, TickOut]:
+    now_ms = hz.now_ms[t]
+    keys, mask, is_write = hz.keys[t], hz.mask[t], hz.is_write[t]
+    # the offered batch's write mix (pre-middleware) accumulates into the
+    # T_slow window that Signals.write_mix reports
+    state = state._replace(
+        rng=hz.rng[t],
+        win_writes=state.win_writes + (is_write & mask).sum(),
+        win_events=state.win_events + mask.sum(),
+    )
+
+    # --- middleware pipeline: stages may absorb requests at the proxy ----
+    absorbed = consts.zero
+    mw_states = list(state.mw)
+    for i, mw in enumerate(mws):
+        batch = mw_lib.BatchView(
+            keys=keys,
+            mask=mask,
+            is_write=is_write,
+            now_ms=now_ms,
+        )
+        mw_states[i], mask, took = mw.on_batch(mw_states[i], batch, cfg)
+        absorbed = absorbed + took
+    state = state._replace(mw=tuple(mw_states))
+
+    # --- route in waves --------------------------------------------------
+    draws = None if hz.draws is None else WaveDraws(
+        *(x[t] for x in hz.draws)
+    )
+    ps, arrivals, stats = _route_waves(
+        cfg, policy, state, controller.view(state.ctrl), now_ms,
+        hz.keysg[t], _wave_split(cfg, mask), hz.feasg[t], draws, impl,
+        consts,
+    )
+
+    # --- queue dynamics: constant-rate servers, work-conserving ----------
+    L = state.L + arrivals
+    L = L - torch.clamp(L, max=cfg.serve_per_tick)
+    lat_pred = (state.L + arrivals) * cfg.service_ms  # wait of new arrival
+    state = state._replace(
+        L=L, policy=ps, sketch=telemetry.sketch_add(state.sketch, lat_pred)
+    )
+
+    # --- telemetry ingest + control on the post-tick clock ---------------
+    t1 = hz.t0 + t + 1
+    if t1 % cfg.t_fast_ticks == 0:
+        state = _ingest(cfg, controller, consts, state, hz.jitter[t])
+    if t1 % cfg.t_slow_ticks == 0:
+        state = _slow(cfg, controller, mws, consts, state)
+
+    k = state.ctrl.knobs
+    out = TickOut(
+        L=L,
+        arrivals=arrivals,
+        lat_pred=lat_pred,
+        d=k.d,
+        delta_l=k.delta_l,
+        f_max=k.f_max,
+        pressure=state.ctrl.pressure,
+        steered=stats.steered,
+        eligible=stats.eligible,
+        cache_hits=absorbed,
+        dV=stats.dV,
+    )
+    return state, out
+
+
+def init_state(
+    cfg: SimConfig,
+    b_tgt: float = 0.15,
+    p99_tgt: float = 500.0,
+    device=None,
+) -> SimState:
+    dev = kernels_common.resolve_device(device)
+    policy = policy_lib.get(cfg.policy)
+    ring = hashring.make_ring(cfg.m, cfg.V, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return SimState(
+        L=torch.zeros((cfg.m,), **f32),
+        L_hat=torch.zeros((cfg.m,), **f32),
+        L_hat_p=torch.zeros((cfg.P, cfg.m), **f32),
+        p50_hat=torch.zeros((cfg.m,), **f32),
+        p99_hat=torch.zeros((cfg.m,), **f32),
+        sketch=telemetry.make_sketch(cfg.m, device=dev),
+        policy=policy.init(cfg, ring, dev),
+        ctrl=_controller(cfg).init(cfg, (b_tgt, p99_tgt), dev),
+        mw=tuple(mw.init(cfg, dev) for mw in _middlewares(cfg)),
+        win_writes=torch.zeros((), **f32),
+        win_events=torch.zeros((), **f32),
+        rng=prng.PRNGKey(cfg.seed, dev),
+    )
+
+
+def run_ticks(
+    cfg: SimConfig,
+    state: SimState,
+    keys: torch.Tensor,
+    mask: torch.Tensor,
+    is_write: torch.Tensor,
+    t0: int = 0,
+) -> Tuple[SimState, TickOut]:
+    """Run the (T, R) grid from ``state`` on the grid's device; returns
+    the final state and the (T, ...) stacked per-tick outputs, still on
+    the device.  ``t0`` is the tick clock of the grid's first row, so a
+    run can resume from the state another run returned.  The (N,)
+    tables of ``state`` are updated in place."""
+    dev = keys.device
+    impl = kernels_common.resolve_route_impl(cfg.route_impl, dev)
+    ring = hashring.make_ring(cfg.m, cfg.V, device=dev)
+    policy = policy_lib.get(cfg.policy)
+    mws = _middlewares(cfg)
+    controller = _controller(cfg)
+    hz = _scan_inputs(
+        cfg, ring, policy, state.rng, keys, mask, is_write, t0
+    )
+    consts = _Consts(
+        zero=torch.zeros((), dtype=torch.float32, device=dev),
+        avail=torch.ones((), dtype=torch.float32, device=dev),
+        member=torch.ones((cfg.m,), dtype=torch.float32, device=dev),
+    )
+    outs: List[TickOut] = []
+    for t in range(keys.shape[0]):
+        state, out = _tick(
+            cfg, policy, mws, controller, impl, consts, hz, t, state
+        )
+        outs.append(out)
+    if not outs:
+        raise ValueError("the workload grid has no ticks")
+    return state, TickOut(*(torch.stack(f) for f in zip(*outs)))
+
+
+def warmup(
+    cfg: SimConfig,
+    T: int = 1200,
+    seed: int = 99,
+    device=None,
+    wl: Optional[Workload] = None,
+) -> Tuple[float, float]:
+    """§III-B: run the ``light`` workload (≤ 40% utilization) with the
+    static ``hash`` policy and no middleware, and derive the control
+    targets.  ``wl`` replaces the generated ``light`` grid (the parity
+    tests pass the reference's realized grid)."""
+    dev = kernels_common.resolve_device(device)
+    if wl is None:
+        wl = make_workload(
+            "light", T=T, m=cfg.m, seed=seed, dt_ms=cfg.dt_ms,
+            service_ms=cfg.service_ms, N=cfg.N, device=dev,
+        )
+    warm_cfg = dataclasses.replace(
+        cfg, policy="hash", cache_enabled=False, middleware=(), faults=None
+    )
+    st = init_state(warm_cfg, device=dev)
+    _, outs = run_ticks(
+        warm_cfg, st, wl.keys.to(dev), wl.mask.to(dev),
+        wl.is_write.to(dev),
+    )
+    L = outs.L.cpu().numpy()
+    # EWMA'd imbalance series, the same smoothing as the controller
+    L_hat = telemetry.ewma_series(L, ctrl_lib.ALPHA_FAST)
+    B = L_hat.std(axis=1) / (L_hat.mean(axis=1) + ctrl_lib.EPS)
+    w = outs.arrivals.cpu().numpy()
+    if w.sum() > 0:
+        (p99_warm,) = telemetry.weighted_quantiles(
+            outs.lat_pred.cpu().numpy(), w, (99,)
+        )
+    else:
+        p99_warm = cfg.service_ms
+    return ctrl_lib.warmup_targets(B, p99_warm, cfg.rtt_ms)
+
+
+def _final_cache(cfg: SimConfig, final: SimState):
+    chain = cfg.middleware_chain
+    return final.mw[chain.index("cache")] if "cache" in chain else None
+
+
+def _to_result(cfg: SimConfig, outs: TickOut, final_cache) -> SimResult:
+    host = TickOut(*(x.cpu().numpy() for x in outs))
+    return SimResult(
+        queue_timeline=host.L,
+        arrivals=host.arrivals,
+        lat_pred=host.lat_pred,
+        d_timeline=host.d,
+        delta_l_timeline=host.delta_l,
+        pressure=host.pressure,
+        steered=host.steered,
+        eligible=host.eligible,
+        cache_hits=host.cache_hits,
+        final_cache=final_cache,
+        config=cfg,
+        f_max_timeline=host.f_max,
+    )
+
+
+def _targets(cfg: SimConfig, do_warmup: bool, device) -> Tuple[float, float]:
+    if do_warmup and policy_lib.get_class(cfg.policy).adaptive:
+        return warmup(cfg, device=device)
+    return 0.15, 5.0 * cfg.service_ms
+
+
+def simulate(
+    cfg: SimConfig, wl: Workload, do_warmup: bool = True, device=None
+) -> SimResult:
+    """Run ``wl`` under ``cfg`` on ``device`` (the CUDA device unless
+    the caller passes ``device="cpu"``; without a card this raises)."""
+    dev = kernels_common.resolve_device(device)
+    kernels_common.resolve_route_impl(cfg.route_impl, dev)  # fail early
+    b_tgt, p99_tgt = _targets(cfg, do_warmup, dev)
+    state = init_state(cfg, b_tgt, p99_tgt, dev)
+    final, outs = run_ticks(
+        cfg, state, wl.keys.to(dev), wl.mask.to(dev), wl.is_write.to(dev)
+    )
+    return _to_result(cfg, outs, _final_cache(cfg, final))

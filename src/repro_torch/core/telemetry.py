@@ -1,0 +1,149 @@
+"""Telemetry: EWMA smoothing, the latency sketch, imbalance.
+
+Proxies observe *server-reported* telemetry -- in-flight queue length
+and recent latency quantiles -- with at most one fast interval of delay
+(paper §IV-E assumption 1).  :class:`LatencySketch` is a per-server
+ring buffer of recent latency observations; quantiles are computed over
+the valid window.  :func:`ewma_series` and :func:`weighted_quantiles`
+are host-side numpy, shared with the warmup pass and ``SimResult``.
+
+The device functions never read a value back to the host, so the
+engine can call them every tick without a synchronisation.  The
+streaming ``HistSketch`` of the summary metrics comes with the sweep
+engine.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.xla import div, fma
+
+
+def ewma(prev: torch.Tensor, x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """x̂_t = (1-α)·x̂_{t-1} + α·x_t  (paper eq., α=0.2 fast loop), with
+    the multiply-add fused as the reference engine computes it."""
+    return fma(1.0 - alpha, prev, alpha * x)
+
+
+def ewma_series(
+    x: np.ndarray, alpha: float, block: int = 512, init: float = 0.0
+) -> np.ndarray:
+    """EWMA-smooth a (T, ...) series along axis 0 (host-side, float64).
+
+    Closed form per block: with decay ρ = 1-α and p_t = ρ^(t+1),
+    x̂_t = p_t · (x̂_init + Σ_{j≤t} α·x_j / p_j), so one cumsum replaces
+    the per-step recurrence.  Blocks bound the rescaling's dynamic range
+    to ρ^(-block), and the block is shortened so ρ^block stays above the
+    float64 underflow floor.
+    """
+    x = np.asarray(x, np.float64)
+    if x.ndim == 0 or x.shape[0] == 0:
+        return x.copy()
+    rho = 1.0 - alpha
+    if rho <= 0.0:
+        return alpha * x
+    block = min(block, max(int(-575.0 / np.log(rho)), 1))
+    out = np.empty_like(x)
+    acc = np.full(x.shape[1:], float(init), np.float64)
+    for s in range(0, x.shape[0], block):
+        xb = x[s : s + block]
+        n = xb.shape[0]
+        p = rho ** np.arange(1, n + 1, dtype=np.float64)
+        pb = p.reshape((n,) + (1,) * (x.ndim - 1))
+        out[s : s + n] = pb * (acc + np.cumsum(alpha * xb / pb, axis=0))
+        acc = out[s + n - 1]
+    return out
+
+
+def weighted_quantiles(
+    values: np.ndarray, weights: np.ndarray, qs: Sequence[float]
+) -> Tuple[float, ...]:
+    """Exact weight-CDF quantiles of ``values`` (host-side numpy).
+
+    Sorts by value and returns, for each q, the first value whose
+    normalized cumulative weight reaches q/100; the index is clipped
+    because fp rounding can leave the final cumulative weight below 1.
+    Zero (or negative) total weight returns 0.0 for every q.
+    """
+    v = np.asarray(values, np.float64).reshape(-1)
+    w = np.asarray(weights, np.float64).reshape(-1)
+    total = w.sum()
+    if total <= 0:
+        return tuple(0.0 for _ in qs)
+    order = np.argsort(v, kind="stable")
+    v, w = v[order], w[order]
+    cum = np.cumsum(w) / total
+    last = v.size - 1
+    return tuple(
+        float(v[min(int(np.searchsorted(cum, q / 100.0)), last)])
+        for q in qs
+    )
+
+
+class LatencySketch(NamedTuple):
+    buf: torch.Tensor  # (m, K) float32 latency observations (ms)
+    idx: torch.Tensor  # () int32 next write slot (shared across servers)
+    count: torch.Tensor  # () int32 total observations so far
+
+
+def make_sketch(m: int, K: int = 64, device=None) -> LatencySketch:
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    return LatencySketch(
+        buf=torch.zeros((m, K), dtype=torch.float32, device=device),
+        idx=z,
+        count=z,
+    )
+
+
+def sketch_add(sk: LatencySketch, obs: torch.Tensor) -> LatencySketch:
+    """Add one observation per server (obs: (m,) ms); writes the ring
+    buffer in place."""
+    K = sk.buf.shape[1]
+    col = (sk.idx % K).long().view(1)
+    sk.buf.index_copy_(1, col, obs.view(-1, 1))
+    return LatencySketch(buf=sk.buf, idx=sk.idx + 1, count=sk.count + 1)
+
+
+def sketch_quantiles(
+    sk: LatencySketch,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p50, p99) per server over the valid window; zeros when empty."""
+    K = sk.buf.shape[1]
+    n = torch.clamp(sk.count, max=K)
+    valid = torch.arange(K, device=sk.buf.device) < n
+    srt = torch.sort(torch.where(valid, sk.buf, torch.inf), dim=1).values
+    nn = torch.clamp(n, min=1)
+    i50 = torch.clamp((nn - 1) / 2, 0, K - 1)
+    i99 = torch.clamp(torch.ceil(0.99 * (nn.float() - 1)), 0, K - 1)
+
+    def take(frac_idx):
+        lo = torch.floor(frac_idx).to(torch.int32)
+        hi = torch.minimum(lo + 1, nn - 1)
+        w = frac_idx - lo
+        s_lo = srt.index_select(1, lo.long().view(1))[:, 0]
+        s_hi = srt.index_select(1, hi.long().view(1))[:, 0]
+        # w is 0 or 1/2 for both quantiles: exact with or without a fma
+        return (1 - w) * s_lo + w * s_hi
+
+    p50 = torch.where(n > 0, take(i50.float()), 0.0)
+    p99 = torch.where(n > 0, take(i99.float()), 0.0)
+    return p50, p99
+
+
+def _std_mean(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Population std and mean in float32, in ``jnp.std``'s order:
+    mean = sum/n, then sqrt(sum((x - mean)**2) / n)."""
+    n = x.shape[-1]
+    mu = div(x.sum(-1), n)
+    c = x - mu[..., None]
+    return torch.sqrt(div((c * c).sum(-1), n)), mu
+
+
+def imbalance(L_hat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """B(t) = std(L̂)/(mean(L̂)+ε)  -- the paper's smoothed imbalance."""
+    sd, mu = _std_mean(L_hat)
+    return sd / (mu + eps)

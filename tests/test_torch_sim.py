@@ -1,0 +1,152 @@
+"""The port's engine equals the live JAX engine on the same inputs.
+
+Both engines get the reference's realized ``bursty`` grid (the port does
+not reproduce ``jax.random.poisson``), and the port draws every other
+random bit with its bitwise threefry.  Integer-valued fields and the
+queue timeline must match exactly.  ``pressure`` may differ by 1e-6
+relative: it is computed from the imbalance std(L̂)/mean(L̂), whose
+float32 sums over the m servers XLA may take in another order (and with
+fused multiply-adds in the squared deviations).  The oracle is the live
+reference run, never ``tests/data/control_golden.npz``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.core import SimConfig as JConfig  # noqa: E402
+from repro.core import make_workload as jmake  # noqa: E402
+from repro.core import sim as jsim  # noqa: E402
+from repro.core import simulate as jsimulate  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import sim as tsim  # noqa: E402
+
+FIELDS = (
+    "queue_timeline",
+    "arrivals",
+    "lat_pred",
+    "d_timeline",
+    "delta_l_timeline",
+    "f_max_timeline",
+    "pressure",
+    "steered",
+    "eligible",
+    "cache_hits",
+)
+CONFIGS = {
+    "pod_bare": dict(policy="power_of_d", middleware=()),
+    "midas_cache": dict(policy="midas", middleware=("cache",)),
+}
+WL = jmake("bursty", T=160, m=8, seed=3, N=512)
+# 20 s always holds a burst, so MIDAS steers and pins; the T=160 grid
+# above (the reference's golden horizon) holds none
+WL_BURST = jmake("bursty", T=400, m=8, seed=3, N=512)
+
+
+def _port_workload(wl):
+    return convert.workload_from_numpy(
+        np.asarray(wl.keys), np.asarray(wl.mask), np.asarray(wl.is_write),
+        wl.N, device="cpu")
+
+
+def _assert_results_match(want, got):
+    for f in FIELDS:
+        w, g = np.asarray(getattr(want, f)), getattr(got, f)
+        assert w.shape == g.shape and w.dtype == g.dtype, f
+        if f == "pressure":
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+@pytest.mark.parametrize("name,horizon", [
+    ("pod_bare", 160), ("midas_cache", 160), ("midas_cache", 400)])
+def test_simulate_matches_live_reference(name, horizon):
+    kw = CONFIGS[name]
+    wl = WL if horizon == 160 else WL_BURST
+    want = jsimulate(JConfig(m=8, N=512, **kw), wl, do_warmup=False)
+    got = tsim.simulate(tsim.SimConfig(m=8, N=512, **kw),
+                        _port_workload(wl), do_warmup=False, device="cpu")
+    _assert_results_match(want, got)
+    if horizon == 400:
+        assert got.steered.sum() > 0 and got.queue_timeline.max() > 4
+    if name == "midas_cache":
+        assert got.cache_hits.sum() > 0
+        for f in ("hits", "misses", "stale_serves", "bypasses"):
+            assert int(getattr(want.final_cache, f)) == int(
+                getattr(got.final_cache, f)), f
+
+
+def test_warmup_targets_match_on_the_reference_light_grid():
+    cfg = JConfig(m=8, N=512, policy="midas", middleware=("cache",))
+    light = jmake("light", T=1200, m=8, seed=99, N=512)
+    want = jsim.warmup(cfg)
+    got = tsim.warmup(tsim.SimConfig(m=8, N=512, policy="midas",
+                                     middleware=("cache",)),
+                      device="cpu", wl=_port_workload(light))
+    assert want == got
+
+
+@pytest.mark.parametrize("populated", (False, True))
+def test_ticks_from_converted_state(populated):
+    """One tick from the reference's ``init_state``, and five ticks from
+    a state whose queues and telemetry are already populated."""
+    kw = CONFIGS["midas_cache"]
+    jcfg, tcfg = JConfig(m=8, N=512, **kw), tsim.SimConfig(m=8, N=512, **kw)
+    st = jsim.init_state(jcfg, 0.2, 300.0)
+    lo, hi = 0, 1
+    if populated:
+        rng = np.random.default_rng(0)
+        st = st._replace(
+            L=np.float32(rng.integers(0, 9, 8) * 0.5),
+            L_hat=rng.random(8).astype(np.float32) * 4,
+            p50_hat=rng.random(8).astype(np.float32) * 200,
+            rng=jax.random.PRNGKey(17),
+        )
+        lo, hi = 40, 45
+    st = jax.device_get(st)
+    tst = convert.state_from_numpy(st, tcfg, device="cpu")
+    k, m, w = (np.array(x)[lo:hi] for x in (WL.keys, WL.mask, WL.is_write))
+    jfinal, jout = jsim._run_scan(jcfg, st, k, m, w)
+    tfinal, tout = tsim.run_ticks(tcfg, tst, *(torch.as_tensor(x)
+                                                for x in (k, m, w)))
+    _assert_trees_match(jout, tout)
+    _assert_trees_match(jfinal, tfinal)
+
+
+def _assert_trees_match(want, got):
+    """Leaf by leaf, with the pressure rule of the module docstring."""
+    wl, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(want))
+    gl = jax.tree_util.tree_leaves(got)
+    assert len(wl) == len(gl)
+    for (path, w), g in zip(wl, gl):
+        name = jax.tree_util.keystr(path)
+        w, g = np.asarray(w), g.numpy()
+        if w.dtype == np.uint32:  # threefry keys
+            w = w.astype(np.int64)
+        assert w.dtype == g.dtype, name
+        if "pressure" in name:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_unported_choices_raise_naming_the_roadmap_item():
+    for kw in (dict(fleet_routing=True), dict(faults=("crash",)),
+               dict(guard=True), dict(ablate="no_pin"),
+               dict(unroll_waves=True), dict(middleware=("fleet_cache",))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsim.SimConfig(**kw)
+    with pytest.raises(ValueError, match="available: hash, midas"):
+        tsim.SimConfig(policy="chbl")
+    with pytest.raises(ValueError, match="available: auto, ref, cuda"):
+        tsim.SimConfig(route_impl="pallas")
+    with pytest.raises(ValueError, match="available: lease"):
+        tsim.SimConfig(cache_mode="lru")
+    assert dataclasses.replace(tsim.SimConfig(), faults=()).faults == ()
