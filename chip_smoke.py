@@ -5,22 +5,35 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout,
-holds it against its plain PyTorch version, drives the port's main path
+It builds the port's CUDA kernels from the sources in the checkout,
+holds each against its plain PyTorch version, drives the port's two
+paths at full width and checks what comes out: the simulator
 (``repro_torch.core.simulate``: MIDAS routing, the cooperative cache,
-the hysteresis controller, the ``bursty`` workload) at full width, and
-checks what comes out.  Phases:
+the hysteresis controller, the ``bursty`` workload) and serving
+(``repro_torch.launch.serve.serve``: the MIDAS router in front of
+prefill and greedy decode of SmolLM-360M).  Phases:
 
-1. card and build: the card's name and power limit, the kernel build;
+1. card and build: the card's name and power limit, the three kernels
+   built at once (one nvcc each);
 2. every kernel against its plain version on the card, with its device
    time (CUDA-graph replay), the time a Python caller pays per call,
-   and its bound;
-3. the main path at full width (m = 64 servers, N = 10**6 keys, V = 64
-   vnodes, 512 request slots per tick, T = 1200 ticks), counting the
-   kernel's launches;
+   its bound and, for attention, the time of PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (a yardstick
+   only; the port never calls it);
+3. the simulator at full width (m = 64 servers, N = 10**6 keys, V = 64
+   vnodes, 512 request slots per tick, T = 1200 ticks), counting
+   ``route_select``'s launches;
 4. the same run with the plain version in place of the kernel, which
    must give the same timelines bit for bit;
-5. a small run on the card against the same run on the CPU.
+5. a small simulator run on the card against the same run on the CPU;
+6. serving at SmolLM-360M's full width and depth (32 layers, d_model
+   960, 15 query heads over 5 KV heads; random weights from seed 0):
+   8 requests of a 512-token prompt and 32 greedy decode steps behind a
+   4-replica router, counting both attention kernels' launches; the
+   same run with the plain attention gives the same tokens, and
+   teacher-forced logits of the two agree;
+7. a small serving run at the smoke configs on the card against the
+   same run on the CPU.
 
 The line before the last is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
@@ -45,6 +58,10 @@ FULL = dict(m=64, N=1_000_000, V=64, d_max=4, n_groups=8)
 T_FULL, R_FULL, SEED = 1200, 512, 0
 PARITY_TICKS = 1200  # phase 4 compares the whole horizon
 REPLACES = "src/repro/kernels/midas_route/kernel.py:319"
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 on the CUDA cores
+# serving (phase 6): the launcher's shapes at SmolLM-360M's width
+SERVE = dict(requests=8, prompt_len=512, decode_len=32, replicas=4, seed=0)
+SERVE_LOGIT_TOL = 2e-2  # kernel vs plain teacher-forced logits, rel + abs
 N_TIMED = 1000  # back-to-back calls per host-side timing
 N_GRAPH = 200  # calls per CUDA graph for device timing
 
@@ -77,18 +94,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build(torch, kernel):
+def phase_build(torch, build, kernels):
     say(card_line())
     say(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    secs, log = kernel.build()
-    say(f"[1] route_select built in {secs:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say("[1] ptxas:", line.strip())
+    built = build.build_all([(k.SOURCE, k.FLAGS) for k in kernels])
+    say(f"[1] {len(kernels)} kernels built at once in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for k in kernels:
+        secs, log = built[str(k.SOURCE)]
+        k.build()  # load the library
+        say(f"[1] {k.SOURCE.name} built in {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say("[1] ptxas:", line.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +240,181 @@ def phase_kernel(torch, kernel, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (continued): the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, D, window, softcap, dtype): the CPU tests' cases, then
+# SmolLM-360M's serving shapes (a 512-token prompt; one token against a
+# 544-row cache at its last position) and a ragged, padded-head shape
+FA_SHAPES = [
+    (1, 128, 4, 2, 64, 0, 0.0, "float32"),
+    (2, 256, 8, 8, 64, 0, 0.0, "float32"),
+    (1, 256, 4, 1, 128, 0, 0.0, "bfloat16"),
+    (1, 256, 8, 2, 64, 64, 0.0, "float32"),
+    (1, 128, 4, 4, 64, 0, 50.0, "float32"),
+    (1, 256, 2, 2, 256, 128, 30.0, "bfloat16"),
+    (2, 100, 6, 2, 20, 24, 20.0, "float32"),
+    (1, 512, 15, 5, 64, 0, 0.0, "float32"),
+]
+DA_SHAPES = [
+    (2, 256, 8, 2, 64, 0, 0.0, "float32"),
+    (1, 512, 4, 4, 64, 0, 0.0, "bfloat16"),
+    (2, 256, 8, 8, 128, 0, 0.0, "float32"),
+    (2, 256, 4, 2, 64, 128, 0.0, "float32"),
+    (1, 256, 8, 4, 64, 0, 50.0, "float32"),
+    (4, 99, 6, 3, 20, 16, 10.0, "float32"),
+    (1, 544, 15, 5, 64, 0, 0.0, "float32"),
+]
+FA_SERVE = (1, 512, 15, 5, 64, 0, 0.0, "float32")
+DA_SERVE = (1, 544, 15, 5, 64, 0, 0.0, "float32")
+
+
+def attn_tol(dtype):
+    """The JAX suite's tolerance (``tests/test_kernels.py:_tol``)."""
+    return (2e-2, 2e-2) if dtype == "bfloat16" else (2e-5, 2e-5)
+
+
+def kept_pairs(S, window, causal=True) -> int:
+    """(query, key) pairs of one head that the masks keep."""
+    n = 0
+    for i in range(S):
+        hi = i if causal else S - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += hi - lo + 1
+    return n
+
+
+def kept_rows(pos, S, window) -> int:
+    """Cache rows one decode row reads (the rows its mask keeps)."""
+    hi = min(pos, S - 1)
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    return max(hi - lo + 1, 0)
+
+
+def fa_bound(B, S, H, KV, D, window, itemsize):
+    """(bound ms, "bytes" or "operations") of causal attention: q, k, v
+    read once and the output written once against 4 D operations per
+    kept pair and head on the float32 CUDA cores the kernel uses."""
+    byts = (2 * B * S * H * D + 2 * B * S * KV * D) * itemsize
+    flops = 4 * D * kept_pairs(S, window) * B * H
+    t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def da_bound(B, H, KV, D, rows, itemsize):
+    """(bound ms, "bytes" or "operations") of decode attention: q, the
+    kept K and V rows and the output moved once, 4 D operations per kept
+    row and head."""
+    byts = (2 * B * H * D + 2 * sum(rows) * KV * D) * itemsize
+    flops = 4 * D * H * sum(rows)
+    t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def attn_err(torch, got, want, dtype, what) -> float:
+    rtol, atol = attn_tol(dtype)
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: not finite")
+    ok = (g - w).abs() <= atol + rtol * w.abs()
+    check(bool(ok.all()), f"{what}: differs from the plain version beyond "
+          f"rtol={rtol} atol={atol}: max |diff| "
+          f"{(g - w).abs().max().item():.3g}")
+    return (g - w).abs().max().item()
+
+
+def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
+    import torch.nn.functional as F
+
+    rows, max_err = [], {"flash_attention": 0.0, "decode_attention": 0.0}
+    for shape in FA_SHAPES:
+        B, S, H, KV, D, window, cap, dtype = shape
+        g = torch.Generator(device="cuda").manual_seed(S + H + D)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((B, S, n, D), generator=g, device="cuda",
+                               dtype=dt) for n in (H, KV, KV))
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = fa_kernel.flash_attention(q, k, v, **kw)
+        want = fa_ref.mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = attn_err(torch, got, want, dtype, f"flash_attention {shape}")
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        k_fn = lambda: fa_kernel.flash_attention(q, k, v, **kw)  # noqa: E731
+        p_fn = lambda: fa_ref.mha(q, k, v, **kw)  # noqa: E731
+        lib_ms = None
+        if window == 0 and cap == 0.0:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = device_ms(torch, [lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)], N_GRAPH)
+        bound, by = fa_bound(B, S, H, KV, D, window, q.element_size())
+        rows.append(dict(
+            name="flash_attention", shape=shape,
+            ms=device_ms(torch, [k_fn], N_GRAPH),
+            plain_ms=device_ms(torch, [p_fn], N_GRAPH),
+            host_ms=host_ms(torch, k_fn), bound_ms=bound, bound_by=by,
+            library_ms=lib_ms, max_abs_err=err))
+    for shape in DA_SHAPES:
+        B, S, H, KV, D, window, cap, dtype = shape
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(S + H + D)
+        # the serving shape reads its cache cold, as a decode step does
+        # (the step streams the model's 1.45 GB of weights between two
+        # reads of one layer's cache): 40 input sets exceed the L2
+        n_sets = 40 if shape == DA_SERVE else 1
+        sets = []
+        for _ in range(n_sets):
+            q = torch.randn((B, H, D), generator=g, device="cuda", dtype=dt)
+            kc, vc = (torch.randn((B, S, KV, D), generator=g, device="cuda",
+                                  dtype=dt) for _ in range(2))
+            sets.append((q, kc, vc))
+        positions = [S - 1] * B if shape == DA_SERVE else torch.randint(
+            1, S - 1, (B,), generator=g, device="cuda").tolist()
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        kw = dict(window=window, softcap=cap)
+        err = 0.0
+        for q, kc, vc in sets:
+            got = da_kernel.decode_attention(q, kc, vc, pos, **kw)
+            want = da_ref.decode_attention(q, kc, vc, pos, **kw)
+            torch.cuda.synchronize()
+            err = max(err, attn_err(torch, got, want, dtype,
+                                    f"decode_attention {shape}"))
+        max_err["decode_attention"] = max(max_err["decode_attention"], err)
+        k_fns = [lambda a=a: da_kernel.decode_attention(*a, pos, **kw)
+                 for a in sets]
+        p_fns = [lambda a=a: da_ref.decode_attention(*a, pos, **kw)
+                 for a in sets]
+        lib_ms = None
+        if cap == 0.0:
+            si = torch.arange(S, device="cuda")[None, :]
+            mask = si <= pos[:, None].long()
+            if window > 0:
+                mask &= si > pos[:, None].long() - window
+            mask = mask[:, None, None, :]
+            lib_ms = device_ms(torch, [
+                lambda a=a: F.scaled_dot_product_attention(
+                    a[0][:, :, None], a[1].transpose(1, 2),
+                    a[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)
+                for a in sets], N_GRAPH)
+        kept = [kept_rows(int(p), S, window) for p in positions]
+        bound, by = da_bound(B, H, KV, D, kept, sets[0][0].element_size())
+        rows.append(dict(
+            name="decode_attention", shape=shape,
+            ms=device_ms(torch, k_fns, N_GRAPH),
+            plain_ms=device_ms(torch, p_fns, N_GRAPH),
+            host_ms=host_ms(torch, k_fns[0]), bound_ms=bound, bound_by=by,
+            library_ms=lib_ms, max_abs_err=err))
+    for r in rows:
+        lib = ("n/a (window or softcap)" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.3f} us")
+        say(f"[2] {r['name']} (B, S, H, KV, D, window, softcap, dtype) = "
+            f"{r['shape']}: agrees (max |diff| {r['max_abs_err']:.3g}); "
+            f"device kernel {r['ms'] * 1e3:.3f} us, plain "
+            f"{r['plain_ms'] * 1e3:.3f} us, sdpa {lib}, bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); called from "
+            f"Python {r['host_ms'] * 1e3:.2f} us")
+    return rows, max_err
+
+
+# ---------------------------------------------------------------------------
 # phases 3-5: the main path
 # ---------------------------------------------------------------------------
 
@@ -334,6 +530,164 @@ def phase_small(np, core):
         f"run; steered={cpu.steered.sum():.0f}")
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: serving
+# ---------------------------------------------------------------------------
+
+
+def replay_traffic(np, router, vocab, *, requests, prompt_len, seed, **_):
+    """The launcher's traffic on the host: each request's session is
+    routed, then its prompt drawn, from one numpy generator.  Returns
+    the prompts and the routes an independent router takes."""
+    rng = np.random.default_rng(seed)
+    prompts, routes = [], []
+    for req in range(requests):
+        session = int(rng.zipf(1.4)) % 16
+        route = router.route(session, req * 50.0, prefix_hash=session % 4)
+        routes.append(route)
+        prompts.append(rng.integers(0, vocab, (1, prompt_len)))
+        router.complete(route[0])
+        router.ingest_telemetry()
+    return prompts, routes
+
+
+def teacher_forced(torch, models, model, prompt, tokens, impl, cache_len):
+    """Logits (1 + decode steps, V) of one request fed ``tokens``, as
+    the launcher runs it (a bfloat16 cache read back in float32)."""
+    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.int32).cuda()}
+    lg, cache = models.prefill(model, batch, cache_len=cache_len,
+                               cache_dtype=torch.bfloat16, impl=impl)
+    cache = {p: {n: a.float() for n, a in c.items()}
+             for p, c in cache.items()}
+    out = [lg[0, -1]]
+    P = prompt.shape[1]
+    tok = torch.as_tensor(tokens, dtype=torch.int32).cuda()
+    for t in range(tokens.shape[0] - 1):
+        pos = torch.tensor([P + t], dtype=torch.int32, device="cuda")
+        lg, cache = models.decode_step(model, cache, tok[t:t + 1][None],
+                                       pos, impl=impl)
+        out.append(lg[0, -1])
+    return torch.stack(out).float()
+
+
+def phase_serve(torch, np, serving, fa_kernel, da_kernel):
+    from repro_torch import models
+    from repro_torch.config import RunConfig, get_arch
+    from repro_torch.serve import MidasRouter
+
+    cfg, run = get_arch("smollm-360m"), RunConfig()
+    t0 = time.perf_counter()
+    model = models.init_params(cfg, SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[6] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, head_dim "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}: {n_params} "
+        f"parameters ({n_params * 4 / 1e9:.2f} GB float32) made from seed "
+        f"{SERVE['seed']} in {time.perf_counter() - t0:.1f} s")
+    # a short warm-up (the card's first matmuls and allocations)
+    serving.serve(cfg, run, requests=1, prompt_len=SERVE["prompt_len"],
+                  decode_len=2, replicas=4, device="cuda", model=model)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa_kernel.flash_attention.launches = 0
+    da_kernel.decode_attention.launches = 0
+    res = serving.serve(cfg, run, device="cuda", model=model, **SERVE)
+    launches = {"flash_attention": fa_kernel.flash_attention.launches,
+                "decode_attention": da_kernel.decode_attention.launches}
+    R, P, T = SERVE["requests"], SERVE["prompt_len"], SERVE["decode_len"]
+    want = {"flash_attention": R * cfg.num_layers,
+            "decode_attention": R * T * cfg.num_layers}
+    say(f"[6] launches in the serving run: {launches} (expected requests x "
+        f"layers, and x decode steps: {want})")
+    check(launches == want, f"{launches} launches, expected {want}")
+    check(res.tokens.shape == (R, T + 1), f"tokens {res.tokens.shape}")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "a token outside the vocabulary")
+    prompts, routes = replay_traffic(
+        np, MidasRouter(replicas=SERVE["replicas"], d=3, f_max=0.25),
+        cfg.vocab_size, **SERVE)
+    check(res.routes == routes, "the router's decisions differ from a "
+          "replay of the same traffic")
+    check(res.stats.routed == R, f"routed {res.stats.routed}")
+    say(f"[6] router: routed={res.stats.routed} steered={res.stats.steered} "
+        f"prefix_hits={res.stats.cache_hits} queue_cv="
+        f"{res.queue_dispersion:.3f}; equal to a host replay of the traffic")
+    say(f"[6] prefill {res.prefill_ms_per_request():.2f} ms per request "
+        f"({P} tokens); decode {res.decode_ms_per_token():.3f} ms per token;"
+        f" {res.tokens_per_s():.1f} decode tokens/s over the whole loop "
+        f"({res.wall_s:.2f} s); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    fa_kernel.flash_attention.launches = 0
+    da_kernel.decode_attention.launches = 0
+    plain = serving.serve(cfg, run, device="cuda", model=model,
+                          attn_impl="ref", **SERVE)
+    check(fa_kernel.flash_attention.launches == 0
+          and da_kernel.decode_attention.launches == 0,
+          "the plain run launched a kernel")
+    check(np.array_equal(plain.tokens, res.tokens),
+          "kernel and plain attention give different greedy tokens")
+    check(plain.routes == res.routes, "plain run routed differently")
+    say(f"[6] the same run with the plain attention on the card: identical "
+        f"greedy tokens ({res.tokens.size}); plain prefill "
+        f"{plain.prefill_ms_per_request():.2f} ms per request, decode "
+        f"{plain.decode_ms_per_token():.3f} ms per token")
+
+    worst = 0.0
+    for req in range(R):
+        lk = teacher_forced(torch, models, model, prompts[req],
+                            res.tokens[req], "cuda", P + T)
+        lp = teacher_forced(torch, models, model, prompts[req],
+                            res.tokens[req], "ref", P + T)
+        check(bool(torch.isfinite(lk).all()), "logits not finite")
+        diff = (lk - lp).abs()
+        check(bool((diff <= SERVE_LOGIT_TOL * (1 + lp.abs())).all()),
+              f"request {req}: teacher-forced logits differ by "
+              f"{diff.max().item():.3g}")
+        check(torch.equal(lk.argmax(-1).cpu(), torch.as_tensor(
+            res.tokens[req], dtype=torch.int64)),
+            f"request {req}: teacher-forced argmax is not the served token")
+        worst = max(worst, diff.max().item())
+    say(f"[6] teacher-forced logits, kernel vs plain attention, all "
+        f"{R} requests x {T + 1} positions: max |diff| {worst:.3g} "
+        f"(allowed {SERVE_LOGIT_TOL} relative and absolute)")
+    return res, launches
+
+
+def phase_serve_small(np, serving):
+    from repro_torch.config import RunConfig, get_smoke_arch
+
+    for arch in ("smollm-360m", "gemma2-2b"):
+        cfg = get_smoke_arch(arch)
+        kw = dict(requests=8, prompt_len=16, decode_len=16, replicas=4,
+                  seed=0)
+        cpu = serving.serve(cfg, RunConfig(arch=arch), device="cpu", **kw)
+        gpu = serving.serve(cfg, RunConfig(arch=arch), device="cuda", **kw)
+        check(np.array_equal(cpu.tokens, gpu.tokens),
+              f"{cfg.name}: card and CPU tokens differ")
+        check(cpu.stats == gpu.stats, f"{cfg.name}: router stats differ")
+        say(f"[7] {cfg.name} (head_dim {cfg.resolved_head_dim}, window "
+            f"{cfg.window_size}, softcap {cfg.logit_softcap}): the card's "
+            f"{gpu.tokens.size} tokens equal the CPU run's")
+
+
+def kernel_entry(name, source, replaces, launches, max_err, row):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    }
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -350,15 +704,26 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import core
     from repro_torch.core import sim
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.midas_route import kernel, ref
+    from repro_torch.launch import serve as serving
 
     t_start = time.perf_counter()
     try:
-        phase_build(torch, kernel)
+        phase_build(torch, _build, [kernel, fa_kernel, da_kernel])
         rows, max_err = phase_kernel(torch, kernel, ref)
+        attn_rows, attn_err = phase_attention(torch, fa_kernel, fa_ref,
+                                              da_kernel, da_ref)
         cfg, wl, res, launches = phase_main(torch, np, core, sim, kernel)
         phase_parity(torch, np, core, cfg, wl, res)
         phase_small(np, core)
+        _, serve_launches = phase_serve(torch, np, serving, fa_kernel,
+                                        da_kernel)
+        phase_serve_small(np, serving)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -366,21 +731,29 @@ def main() -> int:
         r for r in rows
         if (r["R"], r["m"], r["d_max"]) == MAIN_SHAPE and r["mode"] == "midas"
     )
+    main_row = dict(main_row, bound_by="bytes", library_ms=None)
+    fa_row = next(r for r in attn_rows if r["shape"] == FA_SERVE
+                  and r["name"] == "flash_attention")
+    da_row = next(r for r in attn_rows if r["shape"] == DA_SERVE
+                  and r["name"] == "decode_attention")
+    csrc = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     say(f"[*] total {time.perf_counter() - t_start:.1f} s")
     say(card_line())
-    say(json.dumps({"kernels": [{
-        "name": "route_select",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/midas_route/csrc/route_select.cu",
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}))
+    say(json.dumps({"kernels": [
+        kernel_entry("route_select", csrc.format("midas_route",
+                                                 "route_select"),
+                     REPLACES, launches, max_err, main_row),
+        kernel_entry("flash_attention",
+                     csrc.format("flash_attention", "flash_attention"),
+                     "src/repro/kernels/flash_attention/kernel.py:110",
+                     serve_launches["flash_attention"],
+                     attn_err["flash_attention"], fa_row),
+        kernel_entry("decode_attention",
+                     csrc.format("decode_attention", "decode_attention"),
+                     "src/repro/kernels/decode_attention/kernel.py:93",
+                     serve_launches["decode_attention"],
+                     attn_err["decode_attention"], da_row),
+    ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -9,5 +9,9 @@ raise rather than fall back to the CPU.
 The simulator's main path (``core.simulate`` with the ``midas`` policy,
 the cooperative cache and the hysteresis controller) routes every wave
 through the hand-written CUDA kernel in
-``kernels/midas_route/csrc/route_select.cu``.
+``kernels/midas_route/csrc/route_select.cu``.  The serving path
+(``launch.serve.serve``: the MIDAS router in front of prefill and
+greedy decode of the dense attention models in ``models/``) runs its
+attention through ``kernels/flash_attention`` and
+``kernels/decode_attention``.
 """

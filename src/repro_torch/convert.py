@@ -1,20 +1,24 @@
-"""Carry state and workload grids from the JAX reference into the port.
+"""Carry state, workload grids, weights and caches from the JAX
+reference into the port.
 
 The parity tests start both engines from the same state and feed both
-the same realized grids.  The reference's arrays arrive here as numpy
-(the caller runs ``jax.device_get``); this module never imports JAX.
+the same realized grids, and run both models with the same weights.
+The reference's arrays arrive here as numpy (the caller runs
+``jax.device_get``); this module never imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.config import ArchConfig
 from repro_torch.core.sim import SimConfig, SimState, init_state
 from repro_torch.core.workloads import Workload
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import Model, block_pattern, num_blocks
 
 
 def _like(template: Any, value: Any, path: str) -> Any:
@@ -65,3 +69,93 @@ def workload_from_numpy(
         name=name,
         N=int(N),
     )
+
+
+def _tensor(arr: Any) -> torch.Tensor:
+    """A numpy array as a CPU tensor; bfloat16 arrays (``ml_dtypes``,
+    as ``jax.device_get`` returns them) keep their bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _leaf(tree: Any, path) -> Any:
+    node = tree
+    for key in path:
+        if not isinstance(node, dict) or key not in node:
+            raise ValueError(f"params: no leaf {'/'.join(path)}")
+        node = node[key]
+    return node
+
+
+def _count_leaves(tree: Any) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Any, device=None,
+                      dtype=torch.float32) -> Model:
+    """The reference's parameter tree (numpy leaves, the blocks stacked
+    along a leading ``num_blocks`` axis, as ``init_params`` makes it) as
+    the port's :class:`~repro_torch.models.Model` on ``device``.  Raises
+    on a missing, extra or mis-shaped leaf."""
+    model = Model(cfg, device=device, dtype=dtype)
+    n = num_blocks(cfg)
+    names = dict(model.named_parameters())
+    stacked = {}  # a block leaf, read once for all n blocks
+    with torch.no_grad():
+        for name, p in names.items():
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                b, path = int(parts[1]), ["blocks", *parts[2:]]
+                key = "/".join(path)
+                if key not in stacked:
+                    arr = _tensor(_leaf(tree, path))
+                    want = (n, *p.shape)
+                    if tuple(arr.shape) != want:
+                        raise ValueError(f"params: {key} has shape "
+                                         f"{tuple(arr.shape)}, expected "
+                                         f"{want}")
+                    stacked[key] = arr
+                src = stacked[key][b]
+            else:
+                key = "/".join(parts)
+                src = _tensor(_leaf(tree, parts))
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"params: {key} has shape "
+                                     f"{tuple(src.shape)}, expected "
+                                     f"{tuple(p.shape)}")
+            p.copy_(src.to(dtype))
+    want = len(names) - (n - 1) * len(stacked)
+    if _count_leaves(tree) != want:
+        raise ValueError(f"params: the tree has {_count_leaves(tree)} "
+                         f"leaves, the model {want}")
+    return model
+
+
+def cache_from_numpy(cfg: ArchConfig, tree: Any,
+                     device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference's decode cache (``{pos: {"k", "v"}}``, numpy leaves
+    of shape (num_blocks, B, S, KV, hd)) as the port's, in the same
+    dtype, on ``device``.  Raises on a missing or mis-shaped leaf."""
+    dev = resolve_device(device)
+    n = num_blocks(cfg)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for i in range(len(block_pattern(cfg))):
+        k = _tensor(_leaf(tree, [str(i), "k"]))
+        v = _tensor(_leaf(tree, [str(i), "v"]))
+        if (k.dim() != 5 or (k.shape[0], *k.shape[3:]) != (n, kv, hd)
+                or k.shape != v.shape):
+            raise ValueError(
+                f"cache[{i}]: k {tuple(k.shape)} and v {tuple(v.shape)}, "
+                f"expected (num_blocks={n}, B, S, {kv}, {hd}) each"
+            )
+        out[str(i)] = {"k": k.to(dev), "v": v.to(dev)}
+    if _count_leaves(tree) != 2 * len(out):
+        raise ValueError(f"cache: the tree has {_count_leaves(tree)} "
+                         f"leaves, expected {2 * len(out)}")
+    return out

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import registry as registry_lib
+from repro_torch.kernels.common import resolve_device
 
 # Paper cadences and shared control constants (Algorithm 1 lines 1-20).
 T_FAST_MS = 250.0
@@ -104,7 +105,9 @@ def spec(name: str) -> KnobSpec:
 
 
 def init_knobs(rtt_ms: float, device=None) -> Knobs:
-    """Every knob at its spec init (delta_t derives from the RTT)."""
+    """Every knob at its spec init (delta_t derives from the RTT), on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     return Knobs(**{
         s.name: torch.tensor(
             rtt_ms if s.init is None else s.init, dtype=s.dtype,
@@ -249,19 +252,19 @@ def parse_ablations(flags: str) -> Tuple[str, ...]:
 
 def wrap_ablations(ctrl: Controller, flags: str) -> Controller:
     """``ctrl`` unchanged for an empty spec; the ablation decorators are
-    not ported yet (ROADMAP §1 item 10)."""
+    not ported yet (ROADMAP §1 item 14)."""
     if parse_ablations(flags):
         raise NotImplementedError(
-            "ablations are not ported yet (ROADMAP §1 item 10)"
+            "ablations are not ported yet (ROADMAP §1 item 14)"
         )
     return ctrl
 
 
 def wrap_guard(ctrl: Controller, guard: bool) -> Controller:
     """``ctrl`` unchanged without the guard; the oscillation guard is
-    not ported yet (ROADMAP §1 item 10)."""
+    not ported yet (ROADMAP §1 item 14)."""
     if guard:
         raise NotImplementedError(
-            "the oscillation guard is not ported yet (ROADMAP §1 item 10)"
+            "the oscillation guard is not ported yet (ROADMAP §1 item 14)"
         )
     return ctrl

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.prng import MASK, mul32
+from repro_torch.kernels.common import resolve_device
 
 _GOLDEN = 0x9E3779B9
 
@@ -60,7 +61,9 @@ def _np_mix32(x: np.ndarray) -> np.ndarray:
     return x
 
 
-def _np_hash2(a: np.ndarray, b) -> np.ndarray:
+def np_hash2(a: np.ndarray, b) -> np.ndarray:
+    """numpy :func:`hash2` of uint32 values (bitwise the reference's
+    ``hash2``), for host-side callers such as the serving router."""
     a = np.asarray(a, np.uint32)
     b = np.asarray(b, np.uint32)
     return _np_mix32(
@@ -78,7 +81,7 @@ def _ring_arrays(m: int, V: int, salt: int):
     """The ring in pure numpy; memoization happens in the caller."""
     servers = np.repeat(np.arange(m, dtype=np.uint32), V)
     replicas = np.tile(np.arange(V, dtype=np.uint32), m)
-    pos = _np_hash2(
+    pos = np_hash2(
         servers * np.uint32(0x10001) + replicas, np.uint32(salt + 1)
     )
     order = np.argsort(pos, kind="stable")
@@ -91,8 +94,9 @@ def _ring_cached(m: int, V: int, salt: int):
 
 
 def make_ring(m: int, V: int = 64, salt: int = 0, device=None) -> Ring:
-    """The ring on ``device``; the host arrays are built once per
-    (m, V, salt)."""
+    """The ring on ``device`` (the card when None); the host arrays are
+    built once per (m, V, salt)."""
+    device = resolve_device(device)
     pos, owners = _ring_cached(int(m), int(V), int(salt))
     return Ring(
         positions=torch.as_tensor(pos.astype(np.int64), device=device),

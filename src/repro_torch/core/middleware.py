@@ -9,7 +9,7 @@ get a slow-loop hook on the paper's T_slow cadence.
 ``SimConfig.middleware`` is a tuple of registered stage names applied
 in order.  The port carries the cooperative cache (``"cache"``); the
 gossip-delayed ``"fleet_cache"`` comes with the fleet (ROADMAP §1
-item 9).
+item 13).
 """
 
 from __future__ import annotations

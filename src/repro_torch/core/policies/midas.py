@@ -27,6 +27,7 @@ from repro_torch.core.policies.base import (
     steering_dv,
 )
 from repro_torch.core.xla import set_last
+from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.midas_route import ops as route_ops
 
 
@@ -39,6 +40,9 @@ class MidasState(NamedTuple):
 
 
 def init_midas(N: int, w_ticks: int, device=None) -> MidasState:
+    """Empty pins and steering history on ``device`` (the card when
+    None)."""
+    device = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=device)
     return MidasState(
         pin_server=torch.full((N,), -1, dtype=torch.int32, device=device),

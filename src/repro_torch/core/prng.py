@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.xla import fma
+from repro_torch.kernels.common import resolve_device
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -62,9 +63,10 @@ def mul32(a, b):
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: ``(2,)`` key."""
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: ``(2,)`` key on
+    ``device`` (the card when None)."""
     return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:

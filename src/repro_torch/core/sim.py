@@ -102,7 +102,7 @@ class SimConfig:
                 )
         policy_lib.get_class(self.policy)
         if "fleet_cache" in self.middleware:
-            raise _unported("the fleet_cache middleware", 9)
+            raise _unported("the fleet_cache middleware", 13)
         for stage in self.middleware:
             registry_lib.validate_choice(
                 stage, "middleware stage", mw_lib.available()
@@ -112,27 +112,27 @@ class SimConfig:
             self.consensus, "consensus reducer", CONSENSUS_REDUCERS
         )
         if ctrl_lib.parse_ablations(self.ablate):
-            raise _unported("ablations", 10)
+            raise _unported("ablations", 14)
         if not isinstance(self.guard, bool):
             raise ValueError(
                 f"SimConfig.guard must be a bool, got {self.guard!r}"
             )
         if self.guard:
-            raise _unported("the oscillation guard", 10)
+            raise _unported("the oscillation guard", 14)
         registry_lib.validate_choice(
             self.cache_mode, "cache_mode", cache_lib.MODES
         )
         registry_lib.validate_choice(
-            self.route_impl, "route_impl", kernels_common.ROUTE_IMPLS
+            self.route_impl, "route_impl", kernels_common.IMPLS
         )
         if self.gossip_ms < 0:
             raise ValueError(
                 f"SimConfig.gossip_ms must be >= 0, got {self.gossip_ms!r}"
             )
         if self.fleet_routing:
-            raise _unported("fleet routing", 9)
+            raise _unported("fleet routing", 13)
         if self.faults:
-            raise _unported("fault injection", 11)
+            raise _unported("fault injection", 15)
         if self.unroll_waves:
             raise _unported("the unrolled-waves reference engine", 7)
 
@@ -541,7 +541,7 @@ def run_ticks(
     run can resume from the state another run returned.  The (N,)
     tables of ``state`` are updated in place."""
     dev = keys.device
-    impl = kernels_common.resolve_route_impl(cfg.route_impl, dev)
+    impl = kernels_common.resolve_impl(cfg.route_impl, dev, "route_impl")
     ring = hashring.make_ring(cfg.m, cfg.V, device=dev)
     policy = policy_lib.get(cfg.policy)
     mws = _middlewares(cfg)
@@ -639,7 +639,7 @@ def simulate(
     """Run ``wl`` under ``cfg`` on ``device`` (the CUDA device unless
     the caller passes ``device="cpu"``; without a card this raises)."""
     dev = kernels_common.resolve_device(device)
-    kernels_common.resolve_route_impl(cfg.route_impl, dev)  # fail early
+    kernels_common.resolve_impl(cfg.route_impl, dev, "route_impl")
     b_tgt, p99_tgt = _targets(cfg, do_warmup, dev)
     state = init_state(cfg, b_tgt, p99_tgt, dev)
     final, outs = run_ticks(

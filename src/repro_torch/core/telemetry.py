@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.xla import div, fma
+from repro_torch.kernels.common import resolve_device
 
 
 def ewma(prev: torch.Tensor, x: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -91,6 +92,8 @@ class LatencySketch(NamedTuple):
 
 
 def make_sketch(m: int, K: int = 64, device=None) -> LatencySketch:
+    """An empty sketch on ``device`` (the card when None)."""
+    device = resolve_device(device)
     z = torch.zeros((), dtype=torch.int32, device=device)
     return LatencySketch(
         buf=torch.zeros((m, K), dtype=torch.float32, device=device),

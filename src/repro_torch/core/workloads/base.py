@@ -144,7 +144,9 @@ def make_workload(
 
 def zipf_cdf(N: int, alpha: float, device=None) -> torch.Tensor:
     """Zipf(alpha) CDF over N ranks in float32, computed on the CPU so
-    the keys drawn from it do not depend on the device."""
+    the keys drawn from it do not depend on the device, then moved to
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     ranks = torch.arange(1, N + 1, dtype=torch.float32)
     w = ranks ** (-alpha)
     return (torch.cumsum(w, 0) / w.sum()).to(device)

@@ -2,7 +2,7 @@
 
 The port carries ``light`` (the §III-B warmup regime) and ``bursty``
 (the main path's workload); the other five generators, the scenarios
-and the combinators come later (ROADMAP §1 item 8).
+and the combinators come later (ROADMAP §1 item 12).
 """
 
 from __future__ import annotations

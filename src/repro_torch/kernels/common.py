@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
-# choices for SimConfig.route_impl: "auto" resolves per device ("cuda"
-# for tensors on the card, "ref" on the CPU); "ref" pins the plain
-# PyTorch version; "cuda" forces the hand-written kernel
-ROUTE_IMPLS = ("auto", "ref", "cuda")
+# choices for every kernel implementation option (SimConfig.route_impl,
+# the model's attn_impl): "auto" resolves per device ("cuda" for tensors
+# on the card, "ref" on the CPU); "ref" pins the plain PyTorch version;
+# "cuda" forces the hand-written kernel
+IMPLS = ("auto", "ref", "cuda")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -27,19 +28,33 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def resolve_route_impl(name: str, device: torch.device) -> str:
-    """Resolve a ``SimConfig.route_impl`` choice to "ref" or "cuda"."""
-    if name not in ROUTE_IMPLS:
+def resolve_impl(name: str, device, option: str = "impl") -> str:
+    """Resolve an ``IMPLS`` choice to "ref" or "cuda" for tensors on
+    ``device``; ``option`` names the setting in error messages."""
+    if name not in IMPLS:
         raise ValueError(
-            f"unknown route_impl {name!r}; available: "
-            f"{', '.join(ROUTE_IMPLS)}"
+            f"unknown {option} {name!r}; available: {', '.join(IMPLS)}"
         )
     device = torch.device(device)
     if name == "auto":
         return "cuda" if device.type == "cuda" else "ref"
     if name == "cuda" and device.type != "cuda":
         raise ValueError(
-            f"route_impl='cuda' needs tensors on a CUDA device, "
-            f"got {device}"
+            f"{option}='cuda' needs tensors on a CUDA device, got {device}"
         )
     return name
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``: what a kernel wrapper checks before it passes a
+    pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -18,15 +18,17 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import check_tensor as _check
 from repro_torch.kernels.midas_route.ref import ROUTE_MODES, check_mode
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "route_select.cu"
 MAX_D = 16
 MAX_M = 6144  # 2·m float32 staged in 48 KB of shared memory
+FLAGS = _build.EXACT_FLAGS  # bit-equal to the plain version
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+    lib = _build.load(SOURCE, FLAGS)
     fn = lib.route_select_launch
     if fn.argtypes is None:
         # declared, or ctypes would pass each pointer as a 32-bit int
@@ -41,18 +43,6 @@ def build() -> Tuple[float, str]:
     """Build and load the kernel; returns (build seconds, nvcc log)."""
     _lib()
     return _build.build_info(SOURCE)
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def route_select(

@@ -47,6 +47,6 @@ def route_waves(
     else:
         raise ValueError(
             f"unknown route impl {impl!r}; resolve it with "
-            f"kernels.common.resolve_route_impl"
+            f"kernels.common.resolve_impl"
         )
     return assign.reshape(lead), ok_any.reshape(lead)

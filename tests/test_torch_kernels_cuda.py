@@ -1,4 +1,11 @@
-"""The CUDA ``route_select`` kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
+
+``route_select`` must equal its plain version bit for bit;
+``flash_attention`` and ``decode_attention`` must agree within the JAX
+suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
+bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
+SmolLM-360M (a 512-token prompt, a 544-row cache, 15 query heads over
+5 KV heads, head_dim 64), a ragged sequence and a padded head_dim.
 
 Needs a CUDA device and nvcc; skips without them.  The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -15,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.midas_route import ref  # noqa: E402
 
 SHAPES = [(256, 8, 4), (100, 8, 4), (64, 32, 8), (7, 4, 2), (64, 64, 4),
@@ -79,3 +88,120 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
         kernel.route_select(feas.cpu(), load.cpu(), p50.cpu(),
                             sampled.cpu(), tie.cpu(), scal.cpu(),
                             mode="midas")
+
+
+# (B, S, H, KV, D, window, softcap, dtype)
+FA_SHAPES = [
+    (1, 128, 4, 2, 64, 0, 0.0, "float32"),  # tests/test_kernels.py
+    (2, 256, 8, 8, 64, 0, 0.0, "float32"),
+    (1, 256, 4, 1, 128, 0, 0.0, "bfloat16"),
+    (1, 256, 8, 2, 64, 64, 0.0, "float32"),
+    (1, 128, 4, 4, 64, 0, 50.0, "float32"),
+    (1, 256, 2, 2, 256, 128, 30.0, "bfloat16"),
+    (1, 512, 15, 5, 64, 0, 0.0, "float32"),  # SmolLM-360M prefill
+    (2, 100, 6, 2, 20, 24, 20.0, "float32"),  # ragged S, padded D
+    (1, 333, 8, 4, 256, 0, 0.0, "float32"),  # ragged S at D = 256
+    (3, 16, 3, 1, 20, 0, 0.0, "float32"),  # the smoke config's heads
+]
+DA_SHAPES = [
+    (2, 256, 8, 2, 64, 0, 0.0, "float32"),  # tests/test_kernels.py
+    (1, 512, 4, 4, 64, 0, 0.0, "bfloat16"),
+    (2, 256, 8, 8, 128, 0, 0.0, "float32"),
+    (2, 256, 4, 2, 64, 128, 0.0, "float32"),
+    (1, 256, 8, 4, 64, 0, 50.0, "float32"),
+    (1, 544, 15, 5, 64, 0, 0.0, "float32"),  # SmolLM-360M decode
+    (4, 99, 6, 3, 20, 16, 10.0, "float32"),  # ragged S, padded D
+    (2, 300, 24, 2, 256, 0, 0.0, "bfloat16"),  # G = 12: three blocks
+]
+
+
+def _tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+def _randn(rng, shape, dtype):
+    x = rng.standard_normal(shape, np.float32)
+    return torch.as_tensor(x).to(getattr(torch, dtype)).cuda()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    before = kernel.flash_attention.launches
+    for B, S, H, KV, D, window, cap, dtype in FA_SHAPES:
+        rng = np.random.default_rng(S + H + D)
+        q = _randn(rng, (B, S, H, D), dtype)
+        k = _randn(rng, (B, S, KV, D), dtype)
+        v = _randn(rng, (B, S, KV, D), dtype)
+        for causal in (True, False):
+            kw = dict(causal=causal, window=window, softcap=cap)
+            got = kernel.flash_attention(q, k, v, **kw)
+            want = fa_ref.mha(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == q.dtype and got.shape == q.shape
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), want.float().cpu().numpy(),
+                **_tol(dtype), err_msg=str((B, S, H, KV, D, kw, dtype)))
+    assert kernel.flash_attention.launches == before + 2 * len(FA_SHAPES)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_decode_attention_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.decode_attention import kernel
+
+    before = kernel.decode_attention.launches
+    calls = 0
+    for B, S, H, KV, D, window, cap, dtype in DA_SHAPES:
+        rng = np.random.default_rng(S + H + D)
+        q = _randn(rng, (B, H, D), dtype)
+        kc = _randn(rng, (B, S, KV, D), dtype)
+        vc = _randn(rng, (B, S, KV, D), dtype)
+        # random rows, the first and last row, past the end, and a
+        # window that keeps nothing
+        for pos in (rng.integers(1, S - 1, (B,)), [0] * B, [S - 1] * B,
+                    [S + 40] * B):
+            pos = torch.as_tensor(np.asarray(pos, np.int32)).cuda()
+            kw = dict(window=window, softcap=cap)
+            got = kernel.decode_attention(q, kc, vc, pos, **kw)
+            want = da_ref.decode_attention(q, kc, vc, pos, **kw)
+            torch.cuda.synchronize()
+            calls += 1
+            assert got.dtype == q.dtype and got.shape == q.shape
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), want.float().cpu().numpy(),
+                **_tol(dtype),
+                err_msg=str((B, S, H, KV, D, window, cap, dtype, pos)))
+    assert kernel.decode_attention.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+def test_cuda_attention_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 8, 4, 64), "float32")
+    k = _randn(rng, (1, 8, 2, 64), "float32")
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), k)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = _randn(rng, (1, 8, 2, 320), "float32")
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q.cpu(), k.cpu(), k.cpu())
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="pos"):
+        da.decode_attention(q[:, 0], k, k, pos.long())
+    with pytest.raises(ValueError, match="split"):
+        da.decode_attention(q[:, 0, :3], k, k, pos)

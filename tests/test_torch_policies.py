@@ -112,7 +112,7 @@ def test_power_of_d_and_hash_waves_match():
 
 def test_draws_batch_over_waves():
     policy = tpol.get("midas")
-    keys = prng.split(prng.PRNGKey(9), 6).reshape(2, 3, 2)
+    keys = prng.split(prng.PRNGKey(9, device="cpu"), 6).reshape(2, 3, 2)
     both = policy.draws(keys, (5, D_MAX))
     for i in range(2):
         for j in range(3):

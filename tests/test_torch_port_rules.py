@@ -1,5 +1,6 @@
 """Rules of the PyTorch port: no JAX, no reference package, no silent
-CPU fallback."""
+CPU fallback: every public constructor and entry point needs a card
+unless the caller passes ``device="cpu"``."""
 
 import ast
 import subprocess
@@ -38,6 +39,14 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.core, repro_torch.convert\n"
         "import repro_torch.kernels.midas_route.ops\n"
         "import repro_torch.kernels.midas_route.kernel\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.flash_attention.kernel\n"
+        "import repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.kernels.decode_attention.kernel\n"
+        "import repro_torch.config, repro_torch.configs\n"
+        "import repro_torch.models, repro_torch.serve\n"
+        "import repro_torch.launch.serve\n"
+        "repro_torch.config.get_arch('smollm-360m')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n"
@@ -68,3 +77,43 @@ def test_cuda_route_impl_on_cpu_raises():
     with pytest.raises(ValueError, match="CUDA device"):
         simulate(SimConfig(m=8, N=64, route_impl="cuda"), wl,
                  do_warmup=False, device="cpu")
+
+
+def _constructors():
+    """(name, call without a device) of every public constructor and
+    entry point that builds tensors."""
+    from repro_torch import convert, models
+    from repro_torch.config import RunConfig, get_smoke_arch
+    from repro_torch.core import hashring, prng, telemetry
+    from repro_torch.core.controllers import base as controllers
+    from repro_torch.core.policies import midas
+    from repro_torch.core.workloads import base as workloads
+    from repro_torch.launch.serve import serve
+
+    cfg = get_smoke_arch("smollm-360m")
+    return [
+        ("make_ring", lambda: hashring.make_ring(8, 4)),
+        ("PRNGKey", lambda: prng.PRNGKey(0)),
+        ("make_sketch", lambda: telemetry.make_sketch(8)),
+        ("init_knobs", lambda: controllers.init_knobs(2.0)),
+        ("init_midas", lambda: midas.init_midas(16, 4)),
+        ("zipf_cdf", lambda: workloads.zipf_cdf(16, 1.1)),
+        ("init_params", lambda: models.init_params(cfg)),
+        ("init_decode_cache",
+         lambda: models.init_decode_cache(cfg, 1, 4)),
+        ("params_from_numpy", lambda: convert.params_from_numpy(cfg, {})),
+        ("cache_from_numpy", lambda: convert.cache_from_numpy(cfg, {})),
+        ("serve", lambda: serve(cfg, RunConfig(), requests=1,
+                                prompt_len=2, decode_len=1)),
+    ]
+
+
+_NAMES = [name for name, _ in _constructors()]
+
+
+@pytest.mark.parametrize("name", _NAMES)
+def test_constructor_without_device_needs_a_card(monkeypatch, name):
+    call = dict(_constructors())[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

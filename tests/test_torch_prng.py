@@ -15,7 +15,7 @@ SHAPES = ((), (1,), (7,), (8,), (64, 4), (3, 2, 5))
 
 
 def _key(seed):
-    return jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    return jax.random.PRNGKey(seed), prng.PRNGKey(seed, device="cpu")
 
 
 def _np(k):

@@ -100,5 +100,5 @@ def test_cuda_impl_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.route_waves(*args, torch.zeros(4), mode="midas", impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
-        common.resolve_route_impl("cuda", torch.device("cpu"))
-    assert common.resolve_route_impl("auto", torch.device("cpu")) == "ref"
+        common.resolve_impl("cuda", torch.device("cpu"), "route_impl")
+    assert common.resolve_impl("auto", torch.device("cpu")) == "ref"
