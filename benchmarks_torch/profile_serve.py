@@ -3,12 +3,15 @@
 
 Run from the repository root:
 
-    python3 benchmarks_torch/profile_serve.py [--decode-steps 32]
+    python3 benchmarks_torch/profile_serve.py [--arch smollm-360m]
+        [--decode-steps 32]
 
-It builds SmolLM-360M at full width and depth with random weights from
-seed 0 (``chip_smoke.py``'s phase 6), prefills one 512-token prompt
-into a 544-row cache and runs ``--decode-steps`` greedy decode steps,
-once unprofiled (after a warm-up) and once under ``torch.profiler``.
+It builds ``--arch`` (SmolLM-360M, ``chip_smoke.py``'s phase 6, or
+falcon-mamba-7b, its phase 8) at full width and depth with random
+weights from seed 0, prefills one 512-token prompt into a decode cache
+(a 544-row KV cache, or the SSM state and conv tail) and runs
+``--decode-steps`` greedy decode steps, once unprofiled (after a
+warm-up) and once under ``torch.profiler``.
 For prefill and for decode it prints the wall time, the device's busy
 and idle share, kernel launches, the top device kernels and the top
 host ops, with the card's name and power limit.
@@ -65,6 +68,7 @@ def report(torch, prof, wall_s, label, steps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--decode-steps", type=int,
                     default=SERVE["decode_len"])
     args = ap.parse_args()
@@ -83,8 +87,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     print(f"[p] card: {card}; torch {torch.__version__}")
-    cfg = get_arch("smollm-360m")
+    cfg = get_arch(args.arch)
+    t0 = time.perf_counter()
     model = models.init_params(cfg, SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    print(f"[p] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}; weights made in {time.perf_counter() - t0:.1f} s")
     P, T = SERVE["prompt_len"], args.decode_steps
     g = torch.Generator().manual_seed(0)
     prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,

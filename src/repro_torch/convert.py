@@ -19,6 +19,7 @@ from repro_torch.core.sim import SimConfig, SimState, init_state
 from repro_torch.core.workloads import Workload
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import Model, block_pattern, num_blocks
+from repro_torch.models.mamba import dims as mamba_dims
 
 
 def _like(template: Any, value: Any, path: str) -> Any:
@@ -138,23 +139,40 @@ def params_from_numpy(cfg: ArchConfig, tree: Any, device=None,
 
 def cache_from_numpy(cfg: ArchConfig, tree: Any,
                      device=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The reference's decode cache (``{pos: {"k", "v"}}``, numpy leaves
-    of shape (num_blocks, B, S, KV, hd)) as the port's, in the same
-    dtype, on ``device``.  Raises on a missing or mis-shaped leaf."""
+    """The reference's decode cache (numpy leaves: ``{pos: {"k", "v"}}``
+    of shape (num_blocks, B, S, KV, hd) at attention positions,
+    ``{pos: {"h", "conv"}}`` of shape (num_blocks, B, di, st) and
+    (num_blocks, B, d_conv - 1, di) at Mamba positions) as the port's,
+    in the same dtypes, on ``device``.  Raises on a missing or
+    mis-shaped leaf."""
     dev = resolve_device(device)
     n = num_blocks(cfg)
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     out = {}
-    for i in range(len(block_pattern(cfg))):
-        k = _tensor(_leaf(tree, [str(i), "k"]))
-        v = _tensor(_leaf(tree, [str(i), "v"]))
-        if (k.dim() != 5 or (k.shape[0], *k.shape[3:]) != (n, kv, hd)
-                or k.shape != v.shape):
+    for i, spec in enumerate(block_pattern(cfg)):
+        if spec.kind == "attn":
+            names = ("k", "v")
+            tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+            want = (f"(num_blocks={n}, B, S, {tail[0]}, {tail[1]}) each")
+        else:
+            di, st, dc, _ = mamba_dims(cfg)
+            names = ("h", "conv")
+            want = (f"(num_blocks={n}, B, {di}, {st}) and (num_blocks={n},"
+                    f" B, {dc - 1}, {di})")
+        a, b = (_tensor(_leaf(tree, [str(i), name])) for name in names)
+        if spec.kind == "attn":
+            ok = (a.dim() == 5 and (a.shape[0], *a.shape[3:]) == (n, *tail)
+                  and a.shape == b.shape)
+        else:
+            ok = (a.dim() == 4 and b.dim() == 4
+                  and (a.shape[0], *a.shape[2:]) == (n, di, st)
+                  and (b.shape[0], *b.shape[2:]) == (n, dc - 1, di)
+                  and a.shape[1] == b.shape[1])
+        if not ok:
             raise ValueError(
-                f"cache[{i}]: k {tuple(k.shape)} and v {tuple(v.shape)}, "
-                f"expected (num_blocks={n}, B, S, {kv}, {hd}) each"
+                f"cache[{i}]: {names[0]} {tuple(a.shape)} and {names[1]} "
+                f"{tuple(b.shape)}, expected {want}"
             )
-        out[str(i)] = {"k": k.to(dev), "v": v.to(dev)}
+        out[str(i)] = {names[0]: a.to(dev), names[1]: b.to(dev)}
     if _count_leaves(tree) != 2 * len(out):
         raise ValueError(f"cache: the tree has {_count_leaves(tree)} "
                          f"leaves, expected {2 * len(out)}")

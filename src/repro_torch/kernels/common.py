@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 # choices for every kernel implementation option (SimConfig.route_impl,
-# the model's attn_impl): "auto" resolves per device ("cuda" for tensors
+# the model's impl): "auto" resolves per device ("cuda" for tensors
 # on the card, "ref" on the CPU); "ref" pins the plain PyTorch version;
 # "cuda" forces the hand-written kernel
 IMPLS = ("auto", "ref", "cuda")

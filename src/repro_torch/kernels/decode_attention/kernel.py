@@ -65,7 +65,7 @@ def decode_attention(
     if q.device.type != "cuda":
         raise ValueError(
             f"the CUDA decode_attention needs tensors on a CUDA device, "
-            f"got {q.device}; use the plain version (attn_impl='ref') on "
+            f"got {q.device}; use the plain version (impl='ref') on "
             f"the CPU"
         )
     if q.dim() != 3 or k_cache.dim() != 4:

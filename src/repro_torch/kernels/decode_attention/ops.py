@@ -22,7 +22,7 @@ def decode_attention(
     """q: (B, H, D); caches: (B, S, KV, D); pos: (B,) -> (B, H, D).
     ``impl`` is an ``IMPLS`` choice: "auto" launches the CUDA kernel for
     tensors on the card and runs the plain version on the CPU."""
-    if resolve_impl(impl, q.device, "attn_impl") == "ref":
+    if resolve_impl(impl, q.device) == "ref":
         return ref.decode_attention(q, k_cache, v_cache, pos,
                                     window=window, softcap=softcap)
     return kernel.decode_attention(

@@ -63,7 +63,7 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(
             f"the CUDA flash_attention needs tensors on a CUDA device, got "
-            f"{q.device}; use the plain version (attn_impl='ref') on the "
+            f"{q.device}; use the plain version (impl='ref') on the "
             f"CPU"
         )
     if q.dim() != 4 or k.dim() != 4:

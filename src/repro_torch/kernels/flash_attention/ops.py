@@ -21,7 +21,7 @@ def flash_attention(
     """q: (B, S, H, D); k, v: (B, S, KV, D) -> (B, S, H, D).  ``impl``
     is an ``IMPLS`` choice: "auto" launches the CUDA kernel for tensors
     on the card and runs the plain version on the CPU."""
-    if resolve_impl(impl, q.device, "attn_impl") == "ref":
+    if resolve_impl(impl, q.device) == "ref":
         return ref.mha(q, k, v, causal=causal, window=window,
                        softcap=softcap)
     # the kernel reads contiguous tensors (a no-op where they already are)

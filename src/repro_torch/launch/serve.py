@@ -2,11 +2,13 @@
 
 The counterpart of ``repro/launch/serve.py``.  :func:`serve` runs its
 loop: for each request the router picks a replica, the prompt is
-prefilled into a KV cache (rounded to ``run.decode_kv_dtype``, then
-read back in float32 as the reference launcher does), ``decode_len``
-greedy decode steps follow, and the request completes.  One model
-stands for every replica group.  ``main()`` keeps the reference's CLI
-and defaults (the smoke config of ``--arch``) and runs on the card:
+prefilled into a decode cache (the KV cache of a dense model, the SSM
+state and conv tail of a Mamba model; rounded to
+``run.decode_kv_dtype``, then read back in float32 as the reference
+launcher does), ``decode_len`` greedy decode steps follow, and the
+request completes.  One model stands for every replica group.
+``main()`` keeps the reference's CLI and defaults (the smoke config of
+``--arch``) and runs on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --requests 32 --decode-len 16
@@ -77,7 +79,7 @@ def serve(
     replicas: int = 4,
     seed: int = 0,
     device=None,
-    attn_impl: str = "auto",
+    impl: str = "auto",
     model: Optional[models.Model] = None,
 ) -> ServeResult:
     """Serve ``requests`` requests of ``prompt_len`` random prompt tokens
@@ -85,8 +87,9 @@ def serve(
     unless the caller passes ``device="cpu"``; without a card this
     raises).  ``seed`` seeds the traffic (numpy, as the reference
     launcher's ``default_rng(0)``) and, when ``model`` is None, the
-    weights (:func:`repro_torch.models.init_params`).  ``attn_impl`` is
-    an ``IMPLS`` choice for both attention kernels."""
+    weights (:func:`repro_torch.models.init_params`).  ``impl`` is an
+    ``IMPLS`` choice for every kernel of the model path: the attention
+    kernels of a dense model, ``chunk_scan`` of a Mamba model."""
     dev = resolve_device(device)
     if model is None:
         model = models.init_params(cfg, seed, device=dev)
@@ -94,8 +97,8 @@ def serve(
             None, model.device.index):
         raise ValueError(f"the model is on {model.device}, not {dev}")
     max_seq = prompt_len + decode_len
-    prefill = make_prefill_step(cfg, run, cache_len=max_seq, impl=attn_impl)
-    decode = make_serve_step(cfg, run, impl=attn_impl)
+    prefill = make_prefill_step(cfg, run, cache_len=max_seq, impl=impl)
+    decode = make_serve_step(cfg, run, impl=impl)
     router = MidasRouter(replicas=replicas, d=3, f_max=0.25)
     positions = torch.arange(prompt_len, max_seq, dtype=torch.int32,
                              device=dev)

@@ -1,5 +1,5 @@
-"""Model substrate of the port: dense attention families (see
-``model.py`` for what this slice covers)."""
+"""Model substrate of the port: dense attention and pure-SSM families
+(see ``model.py`` for what this slice covers)."""
 
 from repro_torch.models.model import (  # noqa: F401
     Model,

@@ -18,8 +18,8 @@ def _check_model(model: models.Model, cfg: ArchConfig) -> None:
 def make_prefill_step(cfg: ArchConfig, run: RunConfig,
                       cache_len: int | None = None, *,
                       impl: str = "auto"):
-    """``prefill_step(model, batch) -> (logits, cache)``, the cache in
-    ``run.decode_kv_dtype``."""
+    """``prefill_step(model, batch) -> (logits, cache)``, the K/V (or a
+    Mamba layer's conv tail) in ``run.decode_kv_dtype``."""
     cache_dtype = getattr(torch, run.decode_kv_dtype)
 
     def prefill_step(model, batch):

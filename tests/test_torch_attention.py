@@ -146,5 +146,5 @@ def test_cuda_impl_on_cpu_tensors_raises():
         da_ops.decode_attention(tq[:, 0], tk, tv,
                                 torch.zeros(1, dtype=torch.int32),
                                 impl="cuda")
-    with pytest.raises(ValueError, match="unknown attn_impl"):
+    with pytest.raises(ValueError, match="unknown impl"):
         fa_ops.flash_attention(tq, tk, tv, impl="pallas")

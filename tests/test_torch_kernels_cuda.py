@@ -6,6 +6,11 @@ suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
 bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
 SmolLM-360M (a 512-token prompt, a 544-row cache, 15 query heads over
 5 KV heads, head_dim 64), a ragged sequence and a padded head_dim.
+``chunk_scan`` must agree within 1e-4 (relative and absolute, the JAX
+suite's tolerance for the Pallas chunk kernel) on that suite's shapes,
+a ragged d_inner, bfloat16 inputs, d_state 3 and 64, a chunk longer
+than the kernel's staging pass, falcon-mamba's smoke shape and its
+serving shape (a 128-step chunk of d_inner 8192, d_state 16).
 
 Needs a CUDA device and nvcc; skips without them.  The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -25,6 +30,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.midas_route import ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ref as ssm_ref  # noqa: E402
 
 SHAPES = [(256, 8, 4), (100, 8, 4), (64, 32, 8), (7, 4, 2), (64, 64, 4),
           (4097, 64, 16)]
@@ -205,3 +211,79 @@ def test_cuda_attention_kernels_reject_what_they_do_not_take():
         da.decode_attention(q[:, 0], k, k, pos.long())
     with pytest.raises(ValueError, match="split"):
         da.decode_attention(q[:, 0, :3], k, k, pos)
+
+
+# (Bt, Q, DI, ST, dtype)
+CS_SHAPES = [
+    (2, 16, 32, 8, "float32"),  # tests/test_kernels.py
+    (1, 32, 64, 16, "float32"),
+    (2, 16, 32, 8, "bfloat16"),
+    (2, 40, 100, 16, "float32"),  # ragged DI
+    (1, 200, 24, 64, "float32"),  # ST = 64, Q past one staging pass
+    (3, 5, 33, 3, "bfloat16"),  # ST < one lane's four states
+    (1, 16, 128, 8, "float32"),  # falcon-mamba smoke
+    (1, 128, 8192, 16, "float32"),  # falcon-mamba-7b prefill chunk
+]
+
+
+def _scan_inputs(rng, Bt, Q, DI, ST, dtype):
+    dt = np.logaddexp(rng.standard_normal((Bt, Q, DI), np.float32), 0.0)
+    A = -np.exp(rng.standard_normal((DI, ST), np.float32) * 0.5)
+    h0 = torch.as_tensor(rng.standard_normal((Bt, DI, ST),
+                                             np.float32)).cuda()
+    x = _randn(rng, (Bt, Q, DI), dtype)
+    B = _randn(rng, (Bt, Q, ST), dtype)
+    C = _randn(rng, (Bt, Q, ST), dtype)
+    dt = torch.as_tensor(dt.astype(np.float32)).to(
+        getattr(torch, dtype)).cuda()
+    return h0, x, dt, torch.as_tensor(A.astype(np.float32)).cuda(), B, C
+
+
+@pytest.mark.requires_cuda
+def test_cuda_chunk_scan_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssm_scan import kernel
+
+    before = kernel.chunk_scan.launches
+    for Bt, Q, DI, ST, dtype in CS_SHAPES:
+        rng = np.random.default_rng(Q + DI + ST)
+        args = _scan_inputs(rng, Bt, Q, DI, ST, dtype)
+        got_y, got_h = kernel.chunk_scan(*args)
+        want_y, want_h = ssm_ref.chunk_scan(*args)
+        torch.cuda.synchronize()
+        assert got_y.dtype == torch.float32 and got_y.shape == (Bt, Q, DI)
+        assert got_h.dtype == torch.float32 and got_h.shape == (Bt, DI, ST)
+        for got, want in ((got_y, want_y), (got_h, want_h)):
+            np.testing.assert_allclose(
+                got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                atol=1e-4, err_msg=str((Bt, Q, DI, ST, dtype)))
+    assert kernel.chunk_scan.launches == before + len(CS_SHAPES)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_chunk_scan_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.ssm_scan import kernel
+
+    rng = np.random.default_rng(0)
+    h0, x, dt, A, B, C = _scan_inputs(rng, 1, 8, 16, 4, "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.chunk_scan(h0.cpu(), x.cpu(), dt.cpu(), A.cpu(), B.cpu(),
+                          C.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.chunk_scan(h0, x, dt.bfloat16(), A, B, C)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.chunk_scan(h0, x.double(), dt, A, B, C)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.chunk_scan(h0, x, dt[:, :7], A, B, C)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.chunk_scan(h0[:, :8], x, dt, A, B, C)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.chunk_scan(h0, x, dt, A, B.transpose(1, 2).contiguous()
+                          .transpose(1, 2), C)
+    _, x2, dt2, A2, B2, C2 = _scan_inputs(rng, 1, 8, 16, 65, "float32")
+    with pytest.raises(ValueError, match="d_state"):
+        kernel.chunk_scan(torch.zeros((1, 16, 65), device="cuda"), x2, dt2,
+                          A2, B2, C2)

@@ -1,5 +1,6 @@
 """The port's model against the JAX reference on the CPU, with the
-reference's weights converted by ``convert.params_from_numpy``.
+reference's weights converted by ``convert.params_from_numpy``: the
+dense attention families and falcon-mamba (pure Mamba-1).
 
 Tolerances: logits and float32 cache leaves within 1e-4 (relative and
 absolute); the two packages order their float32 sums differently.  A
@@ -24,6 +25,7 @@ from repro_torch.config import get_smoke_arch  # noqa: E402
 
 DENSE = ["smollm-360m", "gemma2-2b", "stablelm-1.6b", "starcoder2-3b"]
 SERVING = ["smollm-360m", "gemma2-2b"]
+MAMBA = "falcon-mamba-7b"
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=2.0**-7, atol=1e-6)
 
@@ -56,7 +58,7 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [MAMBA])
 def test_forward_matches_reference(pair, arch):
     jcfg, params, cfg, model = pair(arch)
     toks = _tokens(cfg, 2, 12)
@@ -140,7 +142,7 @@ def test_decode_writes_at_first_rows_position_clamped(pair):
                                        _np(jc["0"][name]), **TOL)
 
 
-@pytest.mark.parametrize("arch", SERVING)
+@pytest.mark.parametrize("arch", SERVING + [MAMBA])
 def test_prefill_then_decode_matches_forward(arch):
     """The port's own serving path against its own forward, as
     tests/test_serving_path.py holds the reference."""
@@ -199,7 +201,7 @@ def test_params_from_numpy_checks_shapes(pair):
 
 @pytest.mark.parametrize("arch,item", [
     ("dbrx-132b", "item 11"), ("qwen3-moe-235b-a22b", "item 11"),
-    ("falcon-mamba-7b", "item 10"), ("jamba-v0.1-52b", "item 10"),
+    ("jamba-v0.1-52b", "item 11"),
     ("musicgen-large", "item 8"), ("llava-next-mistral-7b", "item 8"),
 ])
 def test_unported_families_raise(arch, item):
@@ -208,6 +210,105 @@ def test_unported_families_raise(arch, item):
         models.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         models.init_decode_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [10, 140])
+def test_mamba_prefill_matches_reference(pair, S, cache_dtype):
+    """The SSM state h in float32 within 1e-4 and the conv tail within
+    one bfloat16 step; 140 tokens run the chunked scan (two chunks of
+    128), 10 tokens the sequential one."""
+    jcfg, params, cfg, model = pair(MAMBA)
+    toks = _tokens(cfg, 2, S, seed=S)
+    want_lg, want_c = jmodels.prefill(
+        params, jcfg, {"tokens": jnp.asarray(toks)},
+        cache_dtype=getattr(jnp, cache_dtype))
+    got_lg, got_c = models.prefill(
+        model, {"tokens": torch.as_tensor(toks)},
+        cache_dtype=getattr(torch, cache_dtype))
+    np.testing.assert_allclose(_np(got_lg), _np(want_lg), **TOL)
+    assert sorted(got_c) == sorted(want_c)
+    for pos in want_c:
+        h, conv = got_c[pos]["h"], got_c[pos]["conv"]
+        assert h.dtype == torch.float32
+        assert conv.dtype == getattr(torch, cache_dtype)
+        assert tuple(h.shape) == want_c[pos]["h"].shape
+        assert tuple(conv.shape) == want_c[pos]["conv"].shape
+        np.testing.assert_allclose(_np(h), _np(want_c[pos]["h"]), **TOL)
+        tol = TOL if cache_dtype == "float32" else BF16_TOL
+        np.testing.assert_allclose(_np(conv), _np(want_c[pos]["conv"]),
+                                   **tol)
+
+
+def test_mamba_decode_matches_reference(pair):
+    """A few decode steps from the same (random) state in both
+    packages, the port's converted by ``cache_from_numpy``; the port
+    writes h and the shifted conv window in place."""
+    jcfg, params, cfg, model = pair(MAMBA)
+    rng = np.random.default_rng(6)
+    jc = jax.device_get(jmodels.init_decode_cache(jcfg, 2, 8,
+                                                  dtype=jnp.float32))
+    jc = {pos: {n: jnp.asarray(rng.standard_normal(a.shape, np.float32))
+                for n, a in c.items()} for pos, c in jc.items()}
+    tc = convert.cache_from_numpy(cfg, jax.device_get(jc), device="cpu")
+    views = {pos: dict(c) for pos, c in tc.items()}
+    for t in range(4):
+        toks = _tokens(cfg, 2, 1, seed=20 + t)
+        pos = np.full((2,), t, np.int32)
+        jl, jc = jmodels.decode_step(params, jcfg, jc, jnp.asarray(toks),
+                                     jnp.asarray(pos))
+        tl, tc = models.decode_step(model, tc, torch.as_tensor(toks),
+                                    torch.as_tensor(pos))
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL,
+                                   err_msg=f"step {t}")
+        for p in jc:
+            for name in ("h", "conv"):
+                assert tc[p][name] is views[p][name]  # written in place
+                np.testing.assert_allclose(_np(tc[p][name]),
+                                           _np(jc[p][name]), **TOL)
+
+
+def test_mamba_prompt_shorter_than_the_conv_window_raises(pair):
+    _, _, cfg, model = pair(MAMBA)
+    short = torch.as_tensor(_tokens(cfg, 1, cfg.mamba.d_conv - 2))
+    with pytest.raises(ValueError, match="d_conv"):
+        models.prefill(model, {"tokens": short})
+    assert models.forward(model, {"tokens": short}).shape[1] == 2
+
+
+def test_init_params_follows_the_reference_mamba_rules():
+    cfg = get_smoke_arch(MAMBA)
+    model = models.init_params(cfg, seed=1, device="cpu")
+    mix = model.blocks[1]["0"].mixer
+    st, dc = cfg.mamba.d_state, cfg.mamba.d_conv
+    di = cfg.mamba.expand * cfg.d_model
+    want_a = torch.log(torch.arange(1, st + 1, dtype=torch.float32))
+    assert torch.equal(mix.A_log, want_a.expand(di, st))
+    for ones in (mix.dt_b, mix.D, model.blocks[0]["0"].pre_norm.scale):
+        assert torch.equal(ones, torch.ones_like(ones))
+    assert torch.equal(mix.conv_b, torch.zeros_like(mix.conv_b))
+    assert not hasattr(model.blocks[0]["0"], "ffn")
+    for w, fan_in in ((mix.conv_w, dc), (mix.in_proj, cfg.d_model),
+                      (mix.x_proj, di), (mix.out_proj, di)):
+        std = float(w.std()) * fan_in ** 0.5
+        assert 0.8 < std < 1.2, (w.shape, std)
+
+
+def test_mamba_cache_from_numpy_checks_shapes(pair):
+    _, _, cfg, _ = pair(MAMBA)
+    di = cfg.mamba.expand * cfg.d_model
+    st, dc = cfg.mamba.d_state, cfg.mamba.d_conv
+    good = {"0": {"h": np.zeros((2, 1, di, st), np.float32),
+                  "conv": np.zeros((2, 1, dc - 1, di), np.float32)}}
+    out = convert.cache_from_numpy(cfg, good, device="cpu")
+    assert out["0"]["h"].shape == (2, 1, di, st)
+    bad = {"0": {"h": good["0"]["h"], "conv": np.zeros((2, 1, dc, di))}}
+    with pytest.raises(ValueError, match="cache"):
+        convert.cache_from_numpy(cfg, bad, device="cpu")
+    with pytest.raises(ValueError, match="no leaf"):
+        convert.cache_from_numpy(cfg, {"0": {"k": good["0"]["h"],
+                                             "v": good["0"]["h"]}},
+                                 device="cpu")
 
 
 def test_remat_policy_raises(pair):

@@ -43,10 +43,14 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.flash_attention.kernel\n"
         "import repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.kernels.decode_attention.kernel\n"
+        "import repro_torch.kernels.ssm_scan.ops\n"
+        "import repro_torch.kernels.ssm_scan.kernel\n"
+        "import repro_torch.models.mamba\n"
         "import repro_torch.config, repro_torch.configs\n"
         "import repro_torch.models, repro_torch.serve\n"
         "import repro_torch.launch.serve\n"
         "repro_torch.config.get_arch('smollm-360m')\n"
+        "repro_torch.config.get_arch('falcon-mamba-7b')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n"
@@ -91,6 +95,7 @@ def _constructors():
     from repro_torch.launch.serve import serve
 
     cfg = get_smoke_arch("smollm-360m")
+    ssm = get_smoke_arch("falcon-mamba-7b")
     return [
         ("make_ring", lambda: hashring.make_ring(8, 4)),
         ("PRNGKey", lambda: prng.PRNGKey(0)),
@@ -105,6 +110,15 @@ def _constructors():
         ("cache_from_numpy", lambda: convert.cache_from_numpy(cfg, {})),
         ("serve", lambda: serve(cfg, RunConfig(), requests=1,
                                 prompt_len=2, decode_len=1)),
+        ("init_params[ssm]", lambda: models.init_params(ssm)),
+        ("init_decode_cache[ssm]",
+         lambda: models.init_decode_cache(ssm, 1, 4)),
+        ("params_from_numpy[ssm]",
+         lambda: convert.params_from_numpy(ssm, {})),
+        ("cache_from_numpy[ssm]",
+         lambda: convert.cache_from_numpy(ssm, {})),
+        ("serve[ssm]", lambda: serve(ssm, RunConfig(), requests=1,
+                                     prompt_len=4, decode_len=1)),
     ]
 
 

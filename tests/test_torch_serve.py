@@ -101,7 +101,8 @@ def _reference_loop(jcfg, params, forced, *, requests, prompt_len,
             logits.argmax(-1), top2[..., 1] - top2[..., 0], top2[..., 1])
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b",
+                                  "falcon-mamba-7b"])
 def test_serve_loop_matches_the_reference_launcher(arch):
     kw = dict(requests=8, prompt_len=16, decode_len=8, replicas=4)
     jcfg, cfg = jget_smoke_arch(arch), get_smoke_arch(arch)
