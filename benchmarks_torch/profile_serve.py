@@ -4,14 +4,15 @@
 Run from the repository root:
 
     python3 benchmarks_torch/profile_serve.py [--arch smollm-360m]
-        [--decode-steps 32]
+        [--decode-steps 32] [--layers N]
 
-It builds ``--arch`` (SmolLM-360M, ``chip_smoke.py``'s phase 6, or
-falcon-mamba-7b, its phase 8) at full width and depth with random
-weights from seed 0, prefills one 512-token prompt into a decode cache
-(a 544-row KV cache, or the SSM state and conv tail) and runs
-``--decode-steps`` greedy decode steps, once unprofiled (after a
-warm-up) and once under ``torch.profiler``.
+It builds ``--arch`` (SmolLM-360M, ``chip_smoke.py``'s phase 6,
+falcon-mamba-7b, its phase 8, or qwen3-moe-235b-a22b with ``--layers
+4``, its phase 9) at full width, at full depth or cut to ``--layers``
+layers, with random weights from seed 0, prefills one 512-token prompt
+into a decode cache (a 544-row KV cache, or the SSM state and conv
+tail) and runs ``--decode-steps`` greedy decode steps, once unprofiled
+(after a warm-up) and once under ``torch.profiler``.
 For prefill and for decode it prints the wall time, the device's busy
 and idle share, kernel launches, the top device kernels and the top
 host ops, with the card's name and power limit.
@@ -20,6 +21,7 @@ host ops, with the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -71,6 +73,9 @@ def main() -> int:
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--decode-steps", type=int,
                     default=SERVE["decode_len"])
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: as "
+                         "published)")
     args = ap.parse_args()
 
     import torch
@@ -88,6 +93,8 @@ def main() -> int:
     ).stdout.strip()
     print(f"[p] card: {card}; torch {torch.__version__}")
     cfg = get_arch(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     t0 = time.perf_counter()
     model = models.init_params(cfg, SERVE["seed"], device="cuda")
     torch.cuda.synchronize()

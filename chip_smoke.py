@@ -6,22 +6,23 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout,
-holds each against its plain PyTorch version, drives the port's three
+holds each against its plain PyTorch version, drives the port's four
 paths at full width and checks what comes out: the simulator
 (``repro_torch.core.simulate``: MIDAS routing, the cooperative cache,
 the hysteresis controller, the ``bursty`` workload) and serving
 (``repro_torch.launch.serve.serve``: the MIDAS router in front of
-prefill and greedy decode) of SmolLM-360M and of falcon-mamba-7b.
-Phases:
+prefill and greedy decode) of SmolLM-360M, falcon-mamba-7b and
+Qwen3-MoE-235B-A22B.  Phases:
 
-1. card and build: the card's name and power limit, the four kernels
+1. card and build: the card's name and power limit, the five sources
    built at once (one nvcc each);
 2. every kernel against its plain version on the card, with its device
    time (CUDA-graph replay), the time a Python caller pays per call,
-   its bound and, for attention, the time of PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs (a yardstick
-   only; the port never calls it; no PyTorch call computes
-   ``route_select`` or ``chunk_scan``);
+   its bound and, where one PyTorch call computes the same function,
+   that call's time (a yardstick only; the port never calls it:
+   ``scaled_dot_product_attention`` for attention, ``torch.topk`` for
+   the dispatch candidates; no PyTorch call computes ``route_select``,
+   ``chunk_scan`` or the fused dispatch);
 3. the simulator at full width (m = 64 servers, N = 10**6 keys, V = 64
    vnodes, 512 request slots per tick, T = 1200 ticks), counting
    ``route_select``'s launches;
@@ -35,8 +36,9 @@ Phases:
    same run with the plain attention gives the same tokens, and
    teacher-forced logits of the two agree;
 7. a small serving run at the smoke configs on the card against the
-   same run on the CPU (falcon-mamba's tokens under the margin rule of
-   phase 8, at the CPU tests' 1e-4 logit tolerance);
+   same run on the CPU (falcon-mamba's, the MoE models' and jamba's
+   tokens under the margin rule of phase 8, and their teacher-forced
+   logits, on a float32 cache, within the CPU tests' 1e-4);
 8. serving at falcon-mamba-7b's full width and depth (64 Mamba-1
    layers, d_model 4096, d_inner 8192, d_state 16; random weights from
    seed 0, 29.1 GB in float32) with phase 6's traffic, counting
@@ -44,7 +46,18 @@ Phases:
    each prompt; decode is plain PyTorch, as in the reference); the
    same run with the plain scan gives the same tokens wherever the
    plain run's teacher-forced top-2 margin is decisive, and
-   teacher-forced logits of the two agree.
+   teacher-forced logits of the two agree;
+9. serving at Qwen3-MoE-235B-A22B's full width (d_model 4096, 64 query
+   heads over 4 KV heads, head_dim 128, 128 experts top-8 of width
+   1536, midas_d 2, f_max 0.25, vocab 151936) cut to 4 of its 94
+   layers (11.19 B parameters, 44.8 GB in float32, random from seed
+   0) with phase 6's traffic, counting ``dispatch_candidates`` (one
+   launch per layer per prefill and per decode step), both attention
+   kernels and no other; tokens under the margin rule against the
+   plain path; the serving path's telemetry is balanced, so nothing
+   steers, as in the reference; then 2 requests through the f_max = 1
+   variant on the same weights, which launches ``dispatch_fused``
+   instead.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -58,6 +71,7 @@ port's sources beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -83,6 +97,10 @@ EXP_PER_S = 16 * 132 * 1.98e9
 SCAN_TOL = 1e-4  # chunk_scan vs its plain version, rel + abs
 N_TIMED = 1000  # back-to-back calls per host-side timing
 N_GRAPH = 200  # calls per CUDA graph for device timing
+# MoE serving (phase 9): Qwen3-MoE-235B-A22B at full width, depth cut
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+MOE_FUSED_REQUESTS = 2  # the f_max = 1 variant's run
+W_TOL = 1e-6  # dispatch weights, kernel vs plain (absolute)
 
 
 class PhaseError(RuntimeError):
@@ -113,19 +131,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build(torch, build, kernels):
+def phase_build(torch, build, sources, loaders):
+    """Build ``sources`` ((path, nvcc flags) each) at once, then load
+    each library through ``loaders``."""
     say(card_line())
     say(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    built = build.build_all([(k.SOURCE, k.FLAGS) for k in kernels])
-    say(f"[1] {len(kernels)} kernels built at once in "
+    built = build.build_all(sources)
+    say(f"[1] {len(sources)} sources built at once in "
         f"{time.perf_counter() - t0:.2f} s")
-    for k in kernels:
-        secs, log = built[str(k.SOURCE)]
-        k.build()  # load the library
-        say(f"[1] {k.SOURCE.name} built in {secs:.2f} s")
+    for load in loaders:
+        load()
+    for source, _ in sources:
+        secs, log = built[str(source)]
+        say(f"[1] {source.name} built in {secs:.2f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say("[1] ptxas:", line.strip())
@@ -524,6 +545,145 @@ def phase_chunk_scan(torch, kernel, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (continued): the MoE dispatch kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (T, E, k, d, f_max): tests/test_kernels.py's MR_CASES and
+# MR_FMAX_CASES (ragged T = 37 and 250 included), qwen3-moe's serving
+# shapes (a 512-token prompt and one decode token; E 128, top-8, d 2)
+# at both f_max, dbrx's E = 16 (top-4) and jamba's (top-2)
+MR_SHAPES = [
+    (256, 8, 2, 2, 1.0), (256, 16, 4, 2, 1.0), (512, 128, 8, 4, 1.0),
+    (256, 4, 2, 2, 1.0), (256, 16, 4, 2, 0.5), (250, 16, 4, 2, 0.25),
+    (37, 8, 2, 2, 0.5), (512, 128, 8, 4, 0.25), (250, 16, 4, 2, 1.0),
+    (512, 128, 8, 2, 0.25), (512, 128, 8, 2, 1.0), (1, 128, 8, 2, 0.25),
+    (1, 128, 8, 2, 1.0), (512, 16, 4, 2, 0.25), (512, 16, 2, 2, 0.25),
+    (1, 16, 4, 2, 0.25),
+]
+# timed: qwen3-moe's decode token (the JSON row) and prefill
+MR_TIMED = [(1, 128, 8, 2), (512, 128, 8, 2)]
+MR_SERVE = (1, 128, 8, 2)
+
+
+def dispatch_inputs(torch, T, E, seed, variant):
+    """Gate logits (T, E) and load (E,) on the card: skewed loads, so
+    tokens steer; ``ties`` rounds both to a few values; ``balanced``
+    is the serving path's load of ones, under which nothing steers."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((T, E), generator=g, device="cuda") * 2.0
+    load = torch.randn((E,), generator=g, device="cuda").abs() * 3.0
+    if variant == "ties":
+        logits = torch.round(logits) / 2.0 + 0.0
+        load = torch.round(load)
+    if variant == "balanced":
+        load = torch.ones_like(load)
+    return logits.contiguous(), load
+
+
+def dispatch_bound(T, E, k, kd, fused):
+    """(bound ms, "bytes" or "operations"): the logits (and the load)
+    read once and the outputs written once (candidates: ids int32 and
+    logits float32 per candidate; fused: experts int32, weights float32
+    and one steered byte per slot), against the (k+d)·E compare-selects
+    of a row at the float32 rate."""
+    byts = 4 * T * E + (4 * E + 9 * T * k if fused else 8 * T * kd)
+    ops = T * E * kd
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_dispatch(torch, kernel, ref, ops):
+    """Both dispatch kernels against the plain version on identical
+    inputs: candidates, experts and steered flags equal, weights within
+    W_TOL; then their times at the serving shapes."""
+    err = {"dispatch_candidates": 0.0, "dispatch_fused": 0.0}
+    steered = cases = 0
+    for (T, E, k, d, f_max), variant in [
+            (shape, v) for shape in MR_SHAPES
+            for v in ("random", "ties", "balanced")]:
+        logits, load = dispatch_inputs(torch, T, E, T + E + k + d, variant)
+        what = f"(T, E, k, d, f_max) = {(T, E, k, d, f_max)} {variant}"
+        kd = k + min(d, E - k)
+        ids, vals = kernel.dispatch_candidates(logits, kd)
+        want_ids, want_vals = ref.top_candidates(logits, kd)
+        got = ops.midas_dispatch(logits, load, k, d, f_max=f_max,
+                                 impl="cuda")
+        want = ref.midas_dispatch(logits, load, k, d, f_max=f_max)
+        torch.cuda.synchronize()
+        check(torch.equal(ids, want_ids), f"dispatch_candidates {what}: "
+              f"candidate ids differ")
+        check(torch.equal(vals, want_vals), f"dispatch_candidates {what}: "
+              f"candidate logits differ")
+        check(torch.equal(got[0], want[0]), f"dispatch {what}: experts "
+              f"differ")
+        check(torch.equal(got[2], want[2]), f"dispatch {what}: steered "
+              f"differs")
+        w_err = (got[1] - want[1]).abs().max().item()
+        check(w_err <= W_TOL, f"dispatch {what}: weights differ by {w_err}")
+        name = "dispatch_fused" if f_max >= 1.0 else "dispatch_candidates"
+        err[name] = max(err[name], w_err)
+        if variant == "balanced":
+            check(not bool(got[2].any()), f"dispatch {what}: a token "
+                  f"steered under balanced load")
+        steered += int(got[2].sum())
+        cases += 1
+    check(steered > 0, "no dispatch case steered")
+    say(f"[2] dispatch_candidates and dispatch_fused: {cases} cases "
+        f"(tests/test_kernels.py's MR shapes, ragged T, ties, qwen3-moe's "
+        f"serving shapes, E = 16) equal to the plain version on "
+        f"candidates, experts and steered ({steered} slots steered); "
+        f"weights within {max(err.values()):.3g} (allowed {W_TOL})")
+
+    rows = []
+    for T, E, k, d in MR_TIMED:
+        kd = k + d
+        logits, load = dispatch_inputs(torch, T, E, 7, "random")
+        for name, fused in (("dispatch_candidates", False),
+                            ("dispatch_fused", True)):
+            if fused:
+                k_fn = lambda: kernel.dispatch_fused(  # noqa: E731
+                    logits, load, k, d)
+                p_fn = lambda: ref.midas_dispatch(  # noqa: E731
+                    logits, load, k, d, f_max=1.0)
+                lib_ms = None
+                path = (lambda: ops.midas_dispatch(  # noqa: E731
+                    logits, load, k, d, f_max=1.0, impl="cuda"), p_fn)
+            else:
+                k_fn = lambda: kernel.dispatch_candidates(  # noqa: E731
+                    logits, kd)
+                p_fn = lambda: ref.top_candidates(logits, kd)  # noqa: E731
+                lib_ms = device_ms(torch, [lambda: torch.topk(logits, kd)],
+                                   N_GRAPH)
+                path = (lambda: ops.midas_dispatch(  # noqa: E731
+                    logits, load, k, d, f_max=0.25, impl="cuda"),
+                    lambda: ref.midas_dispatch(
+                        logits, load, k, d, f_max=0.25))
+            bound, by = dispatch_bound(T, E, k, kd, fused)
+            rows.append(dict(
+                name=name, shape=(T, E, k, d), ms=device_ms(
+                    torch, [k_fn], N_GRAPH),
+                plain_ms=device_ms(torch, [p_fn], N_GRAPH),
+                host_ms=host_ms(torch, k_fn),
+                path_ms=host_ms(torch, path[0], 200),
+                plain_path_ms=host_ms(torch, path[1], 200),
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                max_abs_err=err[name]))
+    for r in rows:
+        lib = ("none computes it" if r["library_ms"] is None
+               else f"torch.topk {r['library_ms'] * 1e3:.3f} us")
+        path = ("f_max 1" if r["name"] == "dispatch_fused"
+                else "f_max 0.25 with the quantile and steering")
+        say(f"[2] {r['name']} (T, E, k, d) = {r['shape']}: device kernel "
+            f"{r['ms'] * 1e3:.3f} us, plain {r['plain_ms'] * 1e3:.3f} us, "
+            f"{lib}, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
+            f"called from Python {r['host_ms'] * 1e3:.2f} us; the whole "
+            f"dispatch ({path}) called from Python: kernel path "
+            f"{r['path_ms'] * 1e3:.1f} us, plain "
+            f"{r['plain_path_ms'] * 1e3:.1f} us")
+    return rows, err
+
+
+# ---------------------------------------------------------------------------
 # phases 3-5: the main path
 # ---------------------------------------------------------------------------
 
@@ -672,13 +832,15 @@ def replay_traffic(np, router, vocab, *, requests, prompt_len, seed, **_):
 
 
 def teacher_forced(torch, models, model, prompt, tokens, impl, cache_len,
-                   device="cuda"):
+                   device="cuda", cache_dtype=None):
     """Logits (1 + decode steps, V) of one request fed ``tokens``, as
-    the launcher runs it (a bfloat16 cache read back in float32)."""
+    the launcher runs it (a bfloat16 cache read back in float32), or
+    with a ``cache_dtype`` cache."""
     batch = {"tokens": torch.as_tensor(prompt, dtype=torch.int32,
                                        device=device)}
     lg, cache = models.prefill(model, batch, cache_len=cache_len,
-                               cache_dtype=torch.bfloat16, impl=impl)
+                               cache_dtype=cache_dtype or torch.bfloat16,
+                               impl=impl)
     cache = {p: {n: a.float() for n, a in c.items()}
              for p, c in cache.items()}
     out = [lg[0, -1]]
@@ -717,40 +879,57 @@ def margin_check(torch, np, tokens, other, lp, tol, what):
     return int((~decided).sum())
 
 
-def phase_serve(torch, np, serving, counters, *, tag, arch, per_layer):
-    """Serve ``arch`` at full width with the SERVE traffic, kernels then
-    plain, and check what comes out.  ``per_layer(R, P, T)`` gives the
-    launches expected of each kernel per layer; every other kernel must
-    not launch.  A dense model must give the same tokens on both paths;
-    a Mamba model the same tokens under the margin rule (its scan sums
-    in another order than the plain one)."""
+def make_model(torch, cfg, tag):
+    """``cfg`` with random weights from SERVE's seed on the card."""
     from repro_torch import models
-    from repro_torch.config import RunConfig, get_arch
-    from repro_torch.serve import MidasRouter
 
-    cfg, run = get_arch(arch), RunConfig()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = models.init_params(cfg, SERVE["seed"], device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    shape = (f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
-             f"head_dim {cfg.resolved_head_dim}" if cfg.mamba is None else
-             f"d_inner {cfg.mamba.expand * cfg.d_model}, d_state "
-             f"{cfg.mamba.d_state}, d_conv {cfg.mamba.d_conv}")
+    if cfg.mamba is not None:
+        shape = (f"d_inner {cfg.mamba.expand * cfg.d_model}, d_state "
+                 f"{cfg.mamba.d_state}, d_conv {cfg.mamba.d_conv}")
+    else:
+        shape = (f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
+                 f"head_dim {cfg.resolved_head_dim}")
+    if cfg.moe is not None:
+        mo = cfg.moe
+        shape += (f", {mo.num_experts} experts top-{mo.experts_per_token} "
+                  f"of width {mo.d_ff_expert}, midas_d {mo.midas_d}, f_max "
+                  f"{mo.midas_fmax}")
     say(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {shape}, vocab {cfg.vocab_size}: {n_params} "
         f"parameters ({n_params * 4 / 1e9:.2f} GB float32) made from seed "
         f"{SERVE['seed']} in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_serve(torch, np, serving, counters, model, *, tag, per_layer,
+                traffic=SERVE):
+    """Serve ``model`` at full width with ``traffic``, kernels then
+    plain, and check what comes out.  ``per_layer(R, P, T)`` gives the
+    launches expected of each kernel per layer; every other kernel must
+    not launch.  A dense model must give the same tokens on both paths;
+    a Mamba or MoE model the same tokens under the margin rule (its
+    scan sums in another order than the plain one; its routing can
+    swap an expert on a last-bit difference upstream of the gate)."""
+    from repro_torch import models
+    from repro_torch.config import RunConfig
+    from repro_torch.serve import MidasRouter
+
+    cfg, run = model.cfg, RunConfig()
     # a short warm-up (the card's first matmuls and allocations)
     serving.serve(cfg, run, requests=1, prompt_len=SERVE["prompt_len"],
                   decode_len=2, replicas=4, device="cuda", model=model)
 
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
-    res = serving.serve(cfg, run, device="cuda", model=model, **SERVE)
+    res = serving.serve(cfg, run, device="cuda", model=model, **traffic)
     launches = read_counts(counters)
-    R, P, T = SERVE["requests"], SERVE["prompt_len"], SERVE["decode_len"]
+    R, P = traffic["requests"], traffic["prompt_len"]
+    T = traffic["decode_len"]
     want = dict.fromkeys(counters, 0)
     for name, n in per_layer(R, P, T).items():
         want[name] = n * cfg.num_layers
@@ -761,8 +940,8 @@ def phase_serve(torch, np, serving, counters, *, tag, arch, per_layer):
     check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
           "a token outside the vocabulary")
     prompts, routes = replay_traffic(
-        np, MidasRouter(replicas=SERVE["replicas"], d=3, f_max=0.25),
-        cfg.vocab_size, **SERVE)
+        np, MidasRouter(replicas=traffic["replicas"], d=3, f_max=0.25),
+        cfg.vocab_size, **traffic)
     check(res.routes == routes, "the router's decisions differ from a "
           "replay of the same traffic")
     check(res.stats.routed == R, f"routed {res.stats.routed}")
@@ -777,11 +956,11 @@ def phase_serve(torch, np, serving, counters, *, tag, arch, per_layer):
 
     zero_counts(counters)
     plain = serving.serve(cfg, run, device="cuda", model=model, impl="ref",
-                          **SERVE)
+                          **traffic)
     check(all(n == 0 for n in read_counts(counters).values()),
           "the plain run launched a kernel")
     check(plain.routes == res.routes, "plain run routed differently")
-    exact = cfg.mamba is None
+    exact = cfg.mamba is None and cfg.moe is None
     if exact:
         check(np.array_equal(plain.tokens, res.tokens),
               "kernel and plain path give different greedy tokens")
@@ -829,7 +1008,8 @@ def phase_serve_small(torch, np, serving):
     from repro_torch.serve import MidasRouter
 
     kw = dict(requests=8, prompt_len=16, decode_len=16, replicas=4, seed=0)
-    for arch in ("smollm-360m", "gemma2-2b", "falcon-mamba-7b"):
+    for arch in ("smollm-360m", "gemma2-2b", "falcon-mamba-7b",
+                 "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-v0.1-52b"):
         cfg = get_smoke_arch(arch)
         run = RunConfig(arch=arch)
         cpu_model = models.init_params(cfg, kw["seed"], device="cpu")
@@ -837,7 +1017,7 @@ def phase_serve_small(torch, np, serving):
         cpu = serving.serve(cfg, run, device="cpu", model=cpu_model, **kw)
         gpu = serving.serve(cfg, run, device="cuda", model=gpu_model, **kw)
         check(cpu.stats == gpu.stats, f"{cfg.name}: router stats differ")
-        if cfg.mamba is None:
+        if cfg.mamba is None and cfg.moe is None:
             check(np.array_equal(cpu.tokens, gpu.tokens),
                   f"{cfg.name}: card and CPU tokens differ")
             say(f"[7] {cfg.name} (head_dim {cfg.resolved_head_dim}, window "
@@ -848,23 +1028,95 @@ def phase_serve_small(torch, np, serving):
             np, MidasRouter(replicas=kw["replicas"], d=3, f_max=0.25),
             cfg.vocab_size, **kw)
         P, T = kw["prompt_len"], kw["decode_len"]
-        lg = [teacher_forced(torch, models, m, prompts[r], gpu.tokens[r],
-                             "auto", P + T, device=dev)
-              for r in range(kw["requests"])
-              for m, dev in ((gpu_model, "cuda"), (cpu_model, "cpu"))]
-        lk, lp = torch.stack(lg[0::2]), torch.stack(lg[1::2])
-        diff = (lk - lp).abs()
-        check(bool((diff <= SMALL_LOGIT_TOL * (1 + lp.abs())).all()),
+
+        def forced(cache_dtype):
+            """(card, CPU) teacher-forced logits of every request."""
+            lg = [teacher_forced(torch, models, m, prompts[r],
+                                 gpu.tokens[r], "auto", P + T, device=dev,
+                                 cache_dtype=cache_dtype)
+                  for r in range(kw["requests"])
+                  for m, dev in ((gpu_model, "cuda"), (cpu_model, "cpu"))]
+            return torch.stack(lg[0::2]), torch.stack(lg[1::2])
+
+        # the logits are held on a float32 cache: with the served
+        # bfloat16 cache a last-bit difference of a cached float32 value
+        # can round to the neighbouring bfloat16 (2**-8 relative), on the
+        # plain path as well as the kernels'; the served tokens are held
+        # under the margin rule against the CPU's served-cache logits
+        lk, lp32 = forced(torch.float32)
+        diff = (lk - lp32).abs()
+        check(bool((diff <= SMALL_LOGIT_TOL * (1 + lp32.abs())).all()),
               f"{cfg.name}: card and CPU teacher-forced logits differ by "
               f"{diff.max().item():.3g}")
+        lk16, lp = forced(torch.bfloat16)
         ties = margin_check(torch, np, gpu.tokens, cpu.tokens, lp,
                             SMALL_LOGIT_TOL, f"{cfg.name} card vs CPU")
-        say(f"[7] {cfg.name} (d_inner {cfg.mamba.expand * cfg.d_model}, "
-            f"d_state {cfg.mamba.d_state}): teacher-forced logits of the "
-            f"card (chunk_scan) and the CPU within {diff.max().item():.3g} "
-            f"(allowed {SMALL_LOGIT_TOL}); the same token at every decisive"
-            f" position, {ties} near-ties of {gpu.tokens.size}; "
-            f"{int((cpu.tokens == gpu.tokens).sum())} tokens equal")
+        parts = []
+        if cfg.mamba is not None:
+            parts.append(f"d_inner {cfg.mamba.expand * cfg.d_model}, "
+                         f"d_state {cfg.mamba.d_state}: chunk_scan")
+        if cfg.moe is not None:
+            parts.append(f"{cfg.moe.num_experts} experts top-"
+                         f"{cfg.moe.experts_per_token}: dispatch_candidates")
+        say(f"[7] {cfg.name} ({'; '.join(parts)}): teacher-forced logits "
+            f"of the card and the CPU on a float32 cache within "
+            f"{diff.max().item():.3g} (allowed {SMALL_LOGIT_TOL}; on the "
+            f"served bfloat16 cache {(lk16 - lp).abs().max().item():.3g});"
+            f" the same token at every decisive position, {ties} near-ties"
+            f" of {gpu.tokens.size}; {int((cpu.tokens == gpu.tokens).sum())}"
+            f" tokens equal")
+
+
+def rebind(models, model, cfg):
+    """A model of ``cfg`` over ``model``'s weights (no copy): the same
+    architecture under other router settings."""
+    other = models.Model(cfg, device="meta")
+    other.load_state_dict(model.state_dict(), assign=True)
+    return other
+
+
+def phase_moe(torch, np, serving, counters):
+    """Qwen3-MoE at full width, 4 layers: the SERVE traffic through
+    ``dispatch_candidates`` (f_max 0.25), a check that the serving
+    path's balanced telemetry steers nothing, then the f_max = 1
+    variant's run through ``dispatch_fused`` on the same weights."""
+    from repro_torch import models
+    from repro_torch.config import get_arch
+    from repro_torch.serve import MidasRouter
+
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    say(f"[9] {full.name}: cut to {MOE_LAYERS} of its {full.num_layers} "
+        f"layers (depth only; every width as published)")
+    model = make_model(torch, cfg, 9)
+    _, launches = phase_serve(
+        torch, np, serving, counters, model, tag=9,
+        per_layer=lambda R, P, T: {"dispatch_candidates": R * (1 + T),
+                                   "flash_attention": R,
+                                   "decode_attention": R * T})
+    prompt = torch.as_tensor(replay_traffic(
+        np, MidasRouter(replicas=SERVE["replicas"], d=3, f_max=0.25),
+        cfg.vocab_size, **SERVE)[0][0], dtype=torch.int32, device="cuda")
+    _, _, aux = models.forward(model, {"tokens": prompt}, return_moe=True)
+    steer = torch.stack([a.steer_rate for a in aux.values()])
+    drop = torch.cat([a.drop_rate for a in aux.values()])
+    check(not bool(steer.any()), f"balanced telemetry steered: {steer}")
+    drops = ", ".join(f"{x:.4f}" for x in drop.cpu().tolist())
+    say(f"[9] a served prompt through the layers under the serving path's "
+        f"balanced telemetry: steered nothing in any layer (as the "
+        f"reference); drop rate per layer {drops}")
+
+    fused_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, midas_fmax=1.0))
+    fused_model = rebind(models, model, fused_cfg)
+    traffic = dict(SERVE, requests=MOE_FUSED_REQUESTS)
+    _, fused_launches = phase_serve(
+        torch, np, serving, counters, fused_model, tag=9,
+        per_layer=lambda R, P, T: {"dispatch_fused": R * (1 + T),
+                                   "flash_attention": R,
+                                   "decode_attention": R * T},
+        traffic=traffic)
+    return launches, fused_launches
 
 
 def kernel_entry(name, source, replaces, launches, max_err, row):
@@ -904,36 +1156,57 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.midas_route import kernel, ref
+    from repro_torch.kernels.midas_route import kernel, ops, ref
     from repro_torch.kernels.ssm_scan import kernel as cs_kernel
     from repro_torch.kernels.ssm_scan import ref as cs_ref
+    from repro_torch.config import get_arch
     from repro_torch.launch import serve as serving
 
     counters = {"route_select": kernel.route_select,
                 "flash_attention": fa_kernel.flash_attention,
                 "decode_attention": da_kernel.decode_attention,
-                "chunk_scan": cs_kernel.chunk_scan}
+                "chunk_scan": cs_kernel.chunk_scan,
+                "dispatch_candidates": kernel.dispatch_candidates,
+                "dispatch_fused": kernel.dispatch_fused}
+    sources = [(kernel.SOURCE, kernel.FLAGS),
+               (kernel.DISPATCH_SOURCE, kernel.FLAGS),
+               (fa_kernel.SOURCE, fa_kernel.FLAGS),
+               (da_kernel.SOURCE, da_kernel.FLAGS),
+               (cs_kernel.SOURCE, cs_kernel.FLAGS)]
+    loaders = [kernel.build, kernel.build_dispatch, fa_kernel.build,
+               da_kernel.build, cs_kernel.build]
     t_start = time.perf_counter()
     try:
-        phase_build(torch, _build, [kernel, fa_kernel, da_kernel, cs_kernel])
+        phase_build(torch, _build, sources, loaders)
         rows, max_err = phase_kernel(torch, kernel, ref)
         attn_rows, attn_err = phase_attention(torch, fa_kernel, fa_ref,
                                               da_kernel, da_ref)
         cs_rows, cs_err = phase_chunk_scan(torch, cs_kernel, cs_ref)
+        mr_rows, mr_err = phase_dispatch(torch, kernel, ref, ops)
+        say(f"[2] phases 1-2 took {time.perf_counter() - t_start:.1f} s")
         cfg, wl, res, launches = phase_main(torch, np, core, sim, counters)
         phase_parity(torch, np, core, cfg, wl, res)
         phase_small(np, core)
+        model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
-            torch, np, serving, counters, tag=6, arch="smollm-360m",
+            torch, np, serving, counters, model, tag=6,
             per_layer=lambda R, P, T: {"flash_attention": R,
                                        "decode_attention": R * T})
+        del model
         torch.cuda.empty_cache()
         phase_serve_small(torch, np, serving)
         t8 = time.perf_counter()
+        model = make_model(torch, get_arch("falcon-mamba-7b"), 8)
         _, ssm_launches = phase_serve(
-            torch, np, serving, counters, tag=8, arch="falcon-mamba-7b",
+            torch, np, serving, counters, model, tag=8,
             per_layer=lambda R, P, T: {"chunk_scan": R * -(-P // 128)})
+        del model
+        torch.cuda.empty_cache()
         say(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")
+        t9 = time.perf_counter()
+        moe_launches, fused_launches = phase_moe(torch, np, serving,
+                                                 counters)
+        say(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -947,7 +1220,9 @@ def main() -> int:
     da_row = next(r for r in attn_rows if r["shape"] == DA_SERVE
                   and r["name"] == "decode_attention")
     cs_row = next(r for r in cs_rows if r["shape"] == CS_SERVE)
+    mr_row = {r["name"]: r for r in mr_rows if r["shape"] == MR_SERVE}
     csrc = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
+    mr_src = csrc.format("midas_route", "midas_dispatch")
     say(f"[*] total {time.perf_counter() - t_start:.1f} s")
     say(card_line())
     say(json.dumps({"kernels": [
@@ -967,6 +1242,15 @@ def main() -> int:
         kernel_entry("chunk_scan", csrc.format("ssm_scan", "chunk_scan"),
                      "src/repro/kernels/ssm_scan/kernel.py:58",
                      ssm_launches["chunk_scan"], cs_err, cs_row),
+        kernel_entry("dispatch_candidates", mr_src,
+                     "src/repro/kernels/midas_route/kernel.py:135",
+                     moe_launches["dispatch_candidates"],
+                     mr_err["dispatch_candidates"],
+                     mr_row["dispatch_candidates"]),
+        kernel_entry("dispatch_fused", mr_src,
+                     "src/repro/kernels/midas_route/kernel.py:66",
+                     fused_launches["dispatch_fused"],
+                     mr_err["dispatch_fused"], mr_row["dispatch_fused"]),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

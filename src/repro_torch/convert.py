@@ -18,7 +18,8 @@ from repro_torch.config import ArchConfig
 from repro_torch.core.sim import SimConfig, SimState, init_state
 from repro_torch.core.workloads import Workload
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import Model, block_pattern, num_blocks
+from repro_torch.models import (Model, block_pattern, init_moe_state,
+                                num_blocks)
 from repro_torch.models.mamba import dims as mamba_dims
 
 
@@ -176,4 +177,24 @@ def cache_from_numpy(cfg: ArchConfig, tree: Any,
     if _count_leaves(tree) != 2 * len(out):
         raise ValueError(f"cache: the tree has {_count_leaves(tree)} "
                          f"leaves, expected {2 * len(out)}")
+    return out
+
+
+def moe_state_from_numpy(cfg: ArchConfig, tree: Any,
+                         device=None) -> Dict[str, torch.Tensor]:
+    """The reference's MoE telemetry state (numpy leaves, ``{pos:
+    (num_blocks, E)}`` at the MoE block positions, as its
+    ``init_moe_state`` and ``forward`` make it) as the port's, float32
+    on ``device``.  Raises on a missing, extra or mis-shaped leaf."""
+    template = init_moe_state(cfg, resolve_device(device))
+    if sorted(tree) != sorted(template):
+        raise ValueError(f"moe_state: positions {sorted(tree)}, expected "
+                         f"{sorted(template)}")
+    out = {}
+    for pos, t in template.items():
+        arr = _tensor(tree[pos])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"moe_state[{pos}]: shape {tuple(arr.shape)}, "
+                             f"expected {tuple(t.shape)}")
+        out[pos] = arr.to(dtype=torch.float32, device=t.device)
     return out

@@ -1,5 +1,7 @@
-"""MIDAS wave routing: the ``route_select`` kernel and its plain version.
+"""MIDAS routing: the simulator's ``route_select`` and the MoE layer's
+``midas_dispatch``, each as CUDA kernels beside their plain versions.
 
-``ref`` is the plain PyTorch function, ``kernel`` the CUDA C++ kernel
-for sm_90a, ``ops`` the dispatcher the routing policies call.
+``ref`` is the plain PyTorch functions, ``kernel`` the CUDA C++ kernels
+for sm_90a, ``ops`` the dispatchers the routing policies and the MoE
+layer call.
 """

@@ -1,12 +1,15 @@
-"""CUDA ``route_select`` for Hopper: build, bind and launch.
+"""CUDA kernels of MIDAS routing for Hopper: build, bind and launch.
 
-The kernel (``csrc/route_select.cu``) replaces the Pallas TPU kernel
-``repro/kernels/midas_route/kernel.py:route_select`` (``_route_body``).
-It is built with ``nvcc`` at first use (``kernels/_build.py``) and
-called through ``ctypes`` on PyTorch's current stream.  The wrapper
-checks device, dtype, shape and contiguity, allocates the outputs, and
-adds one to ``route_select.launches`` for every launch; there is no
-fallback: a tensor not on a CUDA device raises.
+``route_select`` (``csrc/route_select.cu``) replaces the Pallas TPU
+kernel ``repro/kernels/midas_route/kernel.py:route_select``
+(``_route_body``).  ``dispatch_fused`` and ``dispatch_candidates``
+(both in ``csrc/midas_dispatch.cu``) replace the two passes of its
+``midas_dispatch``: ``_body`` (``f_max >= 1``) and ``_cand_body``
+(pass 1 of ``f_max < 1``).  Each source is built with ``nvcc`` at first
+use (``kernels/_build.py``) and called through ``ctypes`` on PyTorch's
+current stream.  A wrapper checks device, dtype, shape and contiguity,
+allocates the outputs, and adds one to its own ``launches`` for every
+launch; there is no fallback: a tensor not on a CUDA device raises.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "route_select.cu"
 MAX_D = 16
 MAX_M = 6144  # 2·m float32 staged in 48 KB of shared memory
 FLAGS = _build.EXACT_FLAGS  # bit-equal to the plain version
+DISPATCH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
+    "midas_dispatch.cu"
+MAX_E = 1024  # 32 logits a lane in registers
+MAX_KD = 16  # k + d: one candidate a lane, and the reference's limit
 
 
 def _lib() -> ctypes.CDLL:
@@ -39,10 +46,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _dispatch_lib() -> ctypes.CDLL:
+    lib = _build.load(DISPATCH_SOURCE, FLAGS)
+    if lib.dispatch_fused_launch.argtypes is None:
+        lib.dispatch_candidates_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.dispatch_candidates_launch.restype = ctypes.c_int
+        lib.dispatch_fused_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.dispatch_fused_launch.restype = ctypes.c_int
+    return lib
+
+
 def build() -> Tuple[float, str]:
-    """Build and load the kernel; returns (build seconds, nvcc log)."""
+    """Build and load ``route_select``; returns (build seconds, nvcc
+    log)."""
     _lib()
     return _build.build_info(SOURCE)
+
+
+def build_dispatch() -> Tuple[float, str]:
+    """Build and load both dispatch kernels; returns (build seconds,
+    nvcc log)."""
+    _dispatch_lib()
+    return _build.build_info(DISPATCH_SOURCE)
 
 
 def route_select(
@@ -99,3 +127,98 @@ def route_select(
 
 
 route_select.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch
+# ---------------------------------------------------------------------------
+
+
+def _check_logits(gate_logits: torch.Tensor, kd: int) -> Tuple[int, int]:
+    if gate_logits.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA dispatch kernels need tensors on a CUDA device, got "
+            f"{gate_logits.device}; use the plain version (impl='ref') on "
+            f"the CPU"
+        )
+    if gate_logits.dim() != 2:
+        raise ValueError(f"gate_logits must be (T, E), got "
+                         f"{tuple(gate_logits.shape)}")
+    T, E = gate_logits.shape
+    if not 1 <= E <= MAX_E:
+        raise ValueError(f"E must be in [1, {MAX_E}], got {E}")
+    if not 1 <= kd <= min(E, MAX_KD):
+        raise ValueError(f"k + d must be in [1, min(E, {MAX_KD})], got {kd}")
+    _check("gate_logits", gate_logits, torch.float32, (T, E),
+           gate_logits.device)
+    return T, E
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def dispatch_candidates(
+    gate_logits: torch.Tensor, kd: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the f_max-capped dispatch on the card: the ``kd``
+    largest logits of each row, as
+    :func:`repro_torch.kernels.midas_route.ref.top_candidates` (ids
+    (T, kd) int32, values (T, kd) float32, lowest id first on ties)."""
+    T, E = _check_logits(gate_logits, kd)
+    dev = gate_logits.device
+    cand = torch.empty((T, kd), dtype=torch.int32, device=dev)
+    vals = torch.empty((T, kd), dtype=torch.float32, device=dev)
+    if T == 0:
+        return cand, vals
+    lib = _dispatch_lib()
+    with torch.cuda.device(dev):
+        err = lib.dispatch_candidates_launch(
+            gate_logits.data_ptr(), cand.data_ptr(), vals.data_ptr(),
+            T, E, kd, _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"dispatch_candidates launch failed: cudaError {err}")
+    dispatch_candidates.launches += 1
+    return cand, vals
+
+
+dispatch_candidates.launches = 0
+
+
+def dispatch_fused(
+    gate_logits: torch.Tensor,
+    load: torch.Tensor,
+    k: int,
+    d: int,
+    *,
+    delta_l: float = 2.0,
+    gate_slack: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The margin-governed dispatch (``f_max >= 1``) in one launch:
+    :func:`repro_torch.kernels.midas_route.ref.midas_dispatch` with
+    ``f_max=1.0`` and ``1 <= d <= E - k``.  Returns (experts (T, k)
+    int32, weights (T, k) float32, steered (T, k) bool)."""
+    if k < 1 or d < 1:
+        raise ValueError(f"k and d must be >= 1, got k={k}, d={d}")
+    T, E = _check_logits(gate_logits, k + d)
+    dev = gate_logits.device
+    _check("load", load, torch.float32, (E,), dev)
+    experts = torch.empty((T, k), dtype=torch.int32, device=dev)
+    weights = torch.empty((T, k), dtype=torch.float32, device=dev)
+    steered = torch.empty((T, k), dtype=torch.bool, device=dev)
+    if T == 0:
+        return experts, weights, steered
+    lib = _dispatch_lib()
+    with torch.cuda.device(dev):
+        err = lib.dispatch_fused_launch(
+            gate_logits.data_ptr(), load.data_ptr(), experts.data_ptr(),
+            weights.data_ptr(), steered.data_ptr(), T, E, k, d,
+            float(delta_l), float(gate_slack), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"dispatch_fused launch failed: cudaError {err}")
+    dispatch_fused.launches += 1
+    return experts, weights, steered
+
+
+dispatch_fused.launches = 0

@@ -1,4 +1,5 @@
-"""Public wrapper for the engine's wave routing: dispatch on impl."""
+"""Public wrappers for MIDAS routing: the engine's wave routing and the
+MoE layer's expert dispatch, each dispatching on a resolved impl."""
 
 from __future__ import annotations
 
@@ -6,7 +7,48 @@ import math
 
 import torch
 
+from repro_torch.kernels.common import resolve_impl
 from repro_torch.kernels.midas_route import kernel, ref
+
+topk_dispatch = ref.topk_dispatch
+expert_load = ref.expert_load
+
+
+def midas_dispatch(
+    gate_logits: torch.Tensor,
+    load: torch.Tensor,
+    k: int,
+    d: int,
+    *,
+    delta_l: float = 2.0,
+    gate_slack: float = 1.0,
+    f_max: float = 1.0,
+    impl: str = "auto",
+):
+    """MoE expert dispatch, as :func:`ref.midas_dispatch` (the same
+    defaults in ref, kernel and here).
+
+    ``impl`` is an ``IMPLS`` choice: "auto" launches the CUDA kernels
+    for tensors on the card and runs the plain version on the CPU;
+    "cuda" on CPU tensors raises.  On the kernel path ``f_max >= 1``
+    is one launch of ``dispatch_fused``; ``f_max < 1`` is one launch of
+    ``dispatch_candidates`` followed by the batch-wide quantile and the
+    steering in PyTorch (``ref.steer_from_candidates``, the function
+    the plain path runs too).  With ``d_eff = min(d, E - k) <= 0`` there
+    is nothing to steer and every impl runs plain top-k, as the
+    reference kernel does."""
+    impl = resolve_impl(impl, gate_logits.device)
+    E = gate_logits.shape[-1]
+    d_eff = min(d, E - k)
+    kw = dict(delta_l=delta_l, gate_slack=gate_slack)
+    if impl == "ref" or d_eff <= 0:
+        return ref.midas_dispatch(gate_logits, load, k, d, f_max=f_max, **kw)
+    logits = gate_logits.float().contiguous()
+    if f_max >= 1.0:
+        return kernel.dispatch_fused(logits, load.float().contiguous(), k,
+                                     d_eff, **kw)
+    cand, vals = kernel.dispatch_candidates(logits, k + d_eff)
+    return ref.steer_from_candidates(cand, vals, load, k, f_max=f_max, **kw)
 
 
 def route_waves(

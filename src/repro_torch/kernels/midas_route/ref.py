@@ -1,13 +1,26 @@
-"""Plain PyTorch version of the ``route_select`` kernel.
+"""Plain PyTorch versions of the MIDAS routing kernels.
 
-The CPU tests run it, and ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.  It is also what ``route_impl="ref"`` runs.
+``route_select`` is the simulator's wave routing; ``topk_dispatch``,
+``steer_from_candidates``, ``midas_dispatch`` and ``expert_load`` are
+the MoE dispatch (the counterparts of
+``repro/kernels/midas_route/ref.py``).  The CPU tests run them, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
+They are also what ``impl="ref"`` runs.
+
+The MoE dispatch maps the paper's routing onto experts: the top-(k+d)
+gate candidates of a token are its feasible set, slot i's primary is
+its i-th ranked expert, and a slot steers to the least-loaded unused
+alternate when the stale load telemetry clears the Δ_L margin and the
+alternate's logit is within ``gate_slack`` of the primary's; with
+``f_max < 1`` only the most beneficial fraction of the batch's tokens
+steers in each slot.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 ROUTE_MODES = ("power_of_d", "midas", "chbl")
@@ -64,3 +77,165 @@ def route_select(
         slot = torch.where(under.any(1), first_under, torch.argmin(lf, 1))
     assign = torch.gather(feas, 1, slot[:, None])[:, 0]
     return assign, ok_any
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch
+# ---------------------------------------------------------------------------
+
+
+def top_candidates(
+    gate_logits: torch.Tensor, kd: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``kd`` largest logits of each row of (T, E) ``gate_logits``,
+    largest first: (ids (T, kd) int32, values (T, kd) float32).  Equal
+    logits rank by the lowest expert id, as ``jax.lax.top_k`` and the
+    reference kernel's iterated argmax rank them; ``torch.topk`` leaves
+    that order unspecified, so this is a stable descending sort."""
+    vals, ids = torch.sort(gate_logits.float(), dim=-1, descending=True,
+                           stable=True)
+    return (ids[:, :kd].to(torch.int32).contiguous(),
+            vals[:, :kd].contiguous())
+
+
+def topk_dispatch(
+    gate_logits: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Vanilla top-k routing: experts (T, k) int32, and weights (T, k)
+    float32, the softmax over the chosen logits."""
+    experts, vals = top_candidates(gate_logits, k)
+    return experts, torch.softmax(vals, dim=-1)
+
+
+def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q)`` of a 1-D float32 tensor (linear
+    interpolation), rounded as the reference computes it on the CPU:
+    the position ``float32(q) * float32(n - 1)`` in float32 and the
+    interpolation ``high * w_high + low * w_low`` with one fused
+    multiply-add (``core.xla.fma``).  A last-bit difference here can flip a
+    steer."""
+    # imported here: repro_torch.core imports this module through the
+    # routing policies
+    from repro_torch.core.xla import fma
+
+    n = x.shape[0]
+    s = torch.sort(x).values
+    # the position and the weights depend on n and q alone: float32
+    # scalars on the host, as XLA folds them
+    pos = np.float32(q) * np.float32(n - 1)
+    low, high = np.floor(pos), np.ceil(pos)
+    w_high = pos - low
+    w_low = np.float32(1.0) - w_high
+    lo = s[int(min(max(low, 0), n - 1))]
+    hi = s[int(min(max(high, 0), n - 1))]
+    return fma(hi, float(w_high), lo * float(w_low))
+
+
+def steer_from_candidates(
+    cand: torch.Tensor,
+    vals: torch.Tensor,
+    load: torch.Tensor,
+    k: int,
+    *,
+    delta_l: float = 2.0,
+    gate_slack: float = 1.0,
+    f_max: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Margin and f_max-capped steering over precomputed candidates.
+
+    ``cand``/``vals`` are the (T, k+d) gate-ranked candidate ids
+    (int32) and logits (float32): slots 0..k-1 are the primaries, k..
+    the d alternates.  Slots steer in order, each alternate at most
+    once.  Shared by the plain path (candidates from
+    :func:`top_candidates`) and the two-pass kernel path (candidates
+    from the CUDA ``dispatch_candidates``), which is what makes the two
+    bit-equal.  With ``f_max < 1`` the threshold is the batch-wide
+    quantile of the per-token benefit (:func:`quantile`), so it runs
+    over the whole (T,) vector, between the kernel and the output.
+    Returns (experts (T, k) int32, weights (T, k) float32, steered
+    (T, k) bool)."""
+    T = cand.shape[0]
+    d_eff = cand.shape[1] - k
+    loadf = load.float()
+    ids = cand.long()
+    alt_ids = ids[:, k:]
+    alt_vals = vals[:, k:]
+    alt_load = loadf[alt_ids]  # (T, d)
+    cols = torch.arange(d_eff, device=cand.device)
+    alt_used = torch.zeros((T, d_eff), dtype=torch.bool, device=cand.device)
+    floor = float(np.float32(delta_l - 1e-9))
+    chosen, chosen_vals, flags = [], [], []
+    for i in range(k):
+        prim = ids[:, i]
+        prim_val = vals[:, i]
+        prim_load = loadf[prim]
+        ok = (
+            ~alt_used
+            & (alt_load <= (prim_load - delta_l)[:, None])
+            & (alt_vals >= (prim_val - gate_slack)[:, None])
+        )
+        masked = torch.where(ok, alt_load, torch.inf)
+        best = torch.argmin(masked, dim=-1)  # the first index on ties
+        has = ok.any(dim=-1)
+        benefit = torch.where(has, prim_load - masked.amin(dim=-1),
+                              -torch.inf)
+        if f_max >= 1.0:
+            steer = has & (benefit >= delta_l)
+        elif f_max <= 0.0:
+            steer = torch.zeros_like(has)
+        else:
+            finite = torch.where(torch.isfinite(benefit), benefit, -1e9)
+            q = quantile(finite, 1.0 - f_max)
+            steer = has & (benefit > q.clamp(min=floor))
+        pick = best[:, None]
+        e_i = torch.where(steer, torch.gather(alt_ids, 1, pick)[:, 0], prim)
+        v_i = torch.where(steer, torch.gather(alt_vals, 1, pick)[:, 0],
+                          prim_val)
+        alt_used = alt_used | (steer[:, None] & (cols == pick))
+        chosen.append(e_i)
+        chosen_vals.append(v_i)
+        flags.append(steer)
+    experts = torch.stack(chosen, dim=1).to(torch.int32)
+    weights = torch.softmax(torch.stack(chosen_vals, dim=1).float(), dim=-1)
+    return experts, weights, torch.stack(flags, dim=1)
+
+
+def midas_dispatch(
+    gate_logits: torch.Tensor,
+    load: torch.Tensor,
+    k: int,
+    d: int,
+    *,
+    delta_l: float = 2.0,
+    gate_slack: float = 1.0,
+    f_max: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Power-of-d steering over the top-(k+d) gate candidates.
+
+    gate_logits: (T, E) float32; load: (E,) the stale per-expert token
+    share, normalised so a balanced system has load 1 everywhere.
+    Returns (experts (T, k) int32, weights (T, k) float32, steered
+    (T, k) bool).  ``f_max=1.0`` is the margin-governed variant, the
+    default of the kernel and of ``ops`` too.  With ``d_eff = min(d,
+    E - k) <= 0`` there is no alternate and this is plain top-k."""
+    E = gate_logits.shape[1]
+    d_eff = min(d, E - k)
+    if d_eff <= 0:
+        experts, weights = topk_dispatch(gate_logits, k)
+        return experts, weights, torch.zeros_like(experts, dtype=torch.bool)
+    cand, vals = top_candidates(gate_logits, k + d_eff)
+    return steer_from_candidates(cand, vals, load, k, delta_l=delta_l,
+                                 gate_slack=gate_slack, f_max=f_max)
+
+
+def expert_load(experts: torch.Tensor, E: int) -> torch.Tensor:
+    """Per-expert token share of (T, k) ``experts``, mean 1 (balanced is
+    ones): ``counts * E / (T * k)`` rounded as XLA compiles it inside
+    the reference's model, where the division by the constant T·k is
+    folded into one float32 constant, ``E * (1 / (T * k))``, and the
+    counts are multiplied by it.  (The reference's eager ``ref`` call
+    divides instead, and can differ from this in the last bit.)"""
+    T, k = experts.shape
+    counts = torch.bincount(experts.reshape(-1).long(), minlength=E)
+    scale = np.float32(E) * (np.float32(1.0) / np.float32(T * k))
+    return counts.float() * float(scale)

@@ -89,7 +89,8 @@ def serve(
     launcher's ``default_rng(0)``) and, when ``model`` is None, the
     weights (:func:`repro_torch.models.init_params`).  ``impl`` is an
     ``IMPLS`` choice for every kernel of the model path: the attention
-    kernels of a dense model, ``chunk_scan`` of a Mamba model."""
+    kernels, ``chunk_scan`` of a Mamba layer and the dispatch kernels of
+    an MoE layer."""
     dev = resolve_device(device)
     if model is None:
         model = models.init_params(cfg, seed, device=dev)

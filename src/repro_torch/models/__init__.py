@@ -1,5 +1,5 @@
-"""Model substrate of the port: dense attention and pure-SSM families
-(see ``model.py`` for what this slice covers)."""
+"""Model substrate of the port: the dense attention, MoE, pure-SSM
+and hybrid families (see ``model.py`` for what the port covers)."""
 
 from repro_torch.models.model import (  # noqa: F401
     Model,
@@ -7,6 +7,7 @@ from repro_torch.models.model import (  # noqa: F401
     decode_step,
     forward,
     init_decode_cache,
+    init_moe_state,
     init_params,
     num_blocks,
     prefill,

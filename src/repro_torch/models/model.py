@@ -1,20 +1,23 @@
-"""Architecture builder for the dense attention and pure-SSM families.
+"""Model assembly for the dense, MoE, pure-SSM and hybrid
+families.
 
 The counterpart of ``repro/models/model.py``.  A model is a stack of
 ``num_blocks`` identical blocks; a block is a short pattern of layers
-(``[attn]``, gemma2's ``[attn-local, attn-global]``, or falcon-mamba's
-``[mamba]``).  The reference scans the stacked blocks with
-``lax.scan``; here they are an ``nn.ModuleList`` walked in order, and
-the decode cache keeps the reference's stacked layout: an attention
+(``[attn]``, gemma2's ``[attn-local, attn-global]``, falcon-mamba's
+``[mamba]``, or jamba's eight: Mamba with attention at position 7 and
+MoE on the odd positions).  The reference scans the stacked blocks
+with ``lax.scan``; here they are an ``nn.ModuleList`` walked in order,
+and the decode cache keeps the reference's stacked layout: an attention
 position holds ``{"k", "v"}`` of shape (num_blocks, B, S_max, KV, hd),
 a Mamba position ``{"h": (num_blocks, B, di, st) float32, "conv":
 (num_blocks, B, d_conv - 1, di)}``, so block ``b`` reads and writes the
-views ``cache[pos][name][b]``.
+views ``cache[pos][name][b]``.  MoE positions carry per-expert load
+telemetry in the same stacked layout, ``{pos: (num_blocks, E)}``
+(:func:`init_moe_state`).
 
-MoE layers (so Jamba too), the audio and vision frontends and
-rematerialisation raise ``NotImplementedError`` naming their ROADMAP
-item.  There is no loss and no backward yet: the functions here run
-without autograd.
+The audio and vision frontends and rematerialisation raise
+``NotImplementedError`` naming their ROADMAP item.  There is no loss
+and no backward yet: the functions here run without autograd.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch.config import ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 
 
 class LayerSpec(NamedTuple):
@@ -64,14 +68,8 @@ def _layer_has_ffn(cfg: ArchConfig) -> bool:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not
-    port."""
-    for spec in block_pattern(cfg):
-        if spec.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet "
-                f"(ROADMAP §1 item 11)"
-            )
+    """Raise ``NotImplementedError`` for what the port does not cover
+    yet: the audio and vision frontends."""
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
@@ -89,7 +87,7 @@ def _check_remat(remat_policy: str) -> None:
 
 class Layer(nn.Module):
     """Pre-norm mixer (attention or Mamba) and, outside the SSM family,
-    a post-norm MLP, with residuals (``_layer_apply``)."""
+    a post-norm MLP or MoE, with residuals (``_layer_apply``)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device=None,
                  dtype=torch.float32):
@@ -104,16 +102,28 @@ class Layer(nn.Module):
         self.has_ffn = _layer_has_ffn(cfg)
         if self.has_ffn:
             self.post_norm = L.Norm(cfg.d_model, cfg.norm, **kw)
-            self.ffn = L.MLP(cfg, **kw)
+            self.ffn = moe_lib.MoE(cfg, **kw) if spec.is_moe else L.MLP(
+                cfg, **kw)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.ffn(self.post_norm(x)) if self.has_ffn else x
+    def _ffn(self, x: torch.Tensor, moe_load, impl: str):
+        """x plus the feed-forward output, and the MoE's aux values (None
+        for an MLP or no FFN)."""
+        if not self.has_ffn:
+            return x, None
+        h = self.post_norm(x)
+        if self.spec.is_moe:
+            y, aux = self.ffn(h, moe_load, impl=impl)
+            return x + y, aux
+        return x + self.ffn(h), None
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
+                moe_load: Optional[torch.Tensor] = None,
                 return_state: bool = False):
-        """With ``return_state`` also the mixer's decode state: the
-        attention's ``{"k", "v"}`` or the Mamba layer's ``{"h",
-        "conv"}``."""
+        """Returns (x, state, aux): with ``return_state`` the mixer's
+        decode state (the attention's ``{"k", "v"}`` or the Mamba
+        layer's ``{"h", "conv"}``, else None), and an MoE layer's
+        :class:`~repro_torch.models.moe.MoEAux` under the telemetry
+        ``moe_load`` (None for balanced; aux None without MoE)."""
         h = self.pre_norm(x)
         if self.spec.kind == "attn":
             out = self.mixer(h, is_local=self.spec.is_local, impl=impl,
@@ -121,20 +131,21 @@ class Layer(nn.Module):
         else:
             out = self.mixer(h, impl=impl, return_state=return_state)
         mix, state = out if return_state else (out, None)
-        x = self._ffn(x + mix)
-        return (x, state) if return_state else x
+        x, aux = self._ffn(x + mix, moe_load, impl)
+        return x, state, aux
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         """One token, ``cache`` this layer's views (``{"k", "v"}`` or
-        ``{"h", "conv"}``), written in place."""
+        ``{"h", "conv"}``), written in place.  An MoE layer sees balanced
+        telemetry, as the reference's decode passes none."""
         h = self.pre_norm(x)
         if self.spec.kind == "attn":
             mix = self.mixer.decode(h, cache["k"], cache["v"], pos,
                                     is_local=self.spec.is_local, impl=impl)
         else:
             mix = self.mixer.decode(h, cache["h"], cache["conv"])
-        return self._ffn(x + mix)
+        return self._ffn(x + mix, None, impl)[0]
 
 
 class Model(nn.Module):
@@ -166,6 +177,7 @@ class Model(nn.Module):
 
 _ZEROS = ("bias", "bq", "bk", "bv", "b1", "b2", "conv_b")
 _ONES = ("scale", "dt_b", "D")
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
@@ -176,11 +188,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     ones, biases zeros, ``A_log`` is log(1..d_state) on every channel,
     and every other weight is normal / sqrt(fan_in), with fan_in the
     input width (H·hd for ``wo``, d_conv for ``conv_w``, 1 for the
-    embedding table).  The draws come from a CPU ``torch.Generator``
-    seeded with ``seed``, one parameter at a time, so a seed gives the
-    same weights on every device (not the reference's: its threefry
-    draws differ; parity tests convert the reference's weights with
-    ``convert.params_from_numpy``)."""
+    embedding table, d for the MoE ``router``, ``w_gate`` and ``w_up``,
+    d_ff_expert for its ``w_down``).  The draws come from a CPU
+    ``torch.Generator`` seeded with ``seed``, one parameter at a time,
+    so a seed gives the same weights on every device (not the
+    reference's: its threefry draws differ; parity tests convert the
+    reference's weights with ``convert.params_from_numpy``)."""
     model = Model(cfg, device=device, dtype=dtype)
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
@@ -200,7 +213,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
                     fan_in = 1
                 elif leaf == "wo":
                     fan_in = p.shape[0] * p.shape[1]
-                elif leaf == "conv_w":
+                elif leaf == "conv_w" or (leaf in _EXPERTS
+                                          and p.dim() == 3):
+                    # conv_w (di, d_conv); experts (E, d, f) and (E, f, d)
                     fan_in = p.shape[1]
                 else:
                     fan_in = p.shape[0]
@@ -211,23 +226,67 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
+# MoE telemetry state
+# ---------------------------------------------------------------------------
+
+
+def init_moe_state(cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
+    """Stale per-expert load telemetry of each MoE block position,
+    stacked over blocks: ``{pos: (num_blocks, E)}`` float32 ones
+    (balanced) on ``device`` (the card when None); empty without
+    MoE."""
+    if cfg.moe is None:
+        return {}
+    dev = resolve_device(device)
+    n = num_blocks(cfg)
+    return {str(i): torch.ones((n, cfg.moe.num_experts),
+                               dtype=torch.float32, device=dev)
+            for i, spec in enumerate(block_pattern(cfg)) if spec.is_moe}
+
+
+# ---------------------------------------------------------------------------
 # Forward (logits of a whole sequence)
 # ---------------------------------------------------------------------------
 
 
 @torch.no_grad()
 def forward(model: Model, batch: Dict[str, torch.Tensor], *,
-            impl: str = "auto", remat_policy: str = "none") -> torch.Tensor:
-    """Full-sequence forward: logits (B, S, V) for ``batch["tokens"]``
-    (B, S).  ``impl`` (an ``IMPLS`` choice) picks every kernel of the
-    path: the attention kernels and the SSM scan's ``chunk_scan``."""
+            moe_state: Optional[Dict[str, torch.Tensor]] = None,
+            return_moe: bool = False, impl: str = "auto",
+            remat_policy: str = "none"):
+    """Full-sequence forward of ``batch["tokens"]`` (B, S).
+
+    Returns the logits (B, S, V); with ``return_moe=True`` returns
+    ``(logits, new_moe_state, aux)`` as the reference's ``forward``
+    does: ``new_moe_state[pos]`` is the EWMA of ``moe_state[pos]``
+    (balanced ones when None, :func:`init_moe_state`) towards this
+    batch's expert load, and ``aux[pos]`` an
+    :class:`~repro_torch.models.moe.MoEAux` whose fields are stacked
+    over blocks (load (num_blocks, E), the rates (num_blocks,)); both
+    are empty without MoE.  ``impl`` (an ``IMPLS`` choice) picks every
+    kernel of the path: the attention kernels, the SSM scan's
+    ``chunk_scan`` and the MoE dispatch."""
     _check_remat(remat_policy)
     x = model.embed(batch["tokens"])
-    for block in model.blocks:
+    auxes: Dict[str, list] = {}
+    for b, block in enumerate(model.blocks):
         for i in range(len(model.pattern)):
-            x = block[str(i)](x, impl=impl)
+            load = moe_state[str(i)][b] if (
+                moe_state and str(i) in moe_state) else None
+            x, _, aux = block[str(i)](x, impl=impl, moe_load=load)
+            if aux is not None:
+                auxes.setdefault(str(i), []).append(aux)
     x = model.final_norm(x)
-    return model.embed.logits(x)
+    logits = model.embed.logits(x)
+    if not return_moe:
+        return logits
+    if moe_state is None:
+        moe_state = init_moe_state(model.cfg, x.device)
+    aux_out = {pos: moe_lib.MoEAux(*(torch.stack(f) for f in zip(*a)))
+               for pos, a in auxes.items()}
+    new_state = {pos: moe_lib.update_load_ewma(moe_state[pos], a.load)
+                 for pos, a in aux_out.items()}
+    return logits, new_state, aux_out
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +330,9 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
     logits (B, 1, V) and a decode-ready cache: K/V padded with zeros to
     ``cache_len`` rows and rounded to ``cache_dtype``; a Mamba layer's
     h in float32 and its conv tail rounded to ``cache_dtype``.  A prompt
-    shorter than d_conv - 1 raises ``ValueError`` for a Mamba model."""
+    shorter than d_conv - 1 raises ``ValueError`` for a Mamba model.
+    MoE layers see balanced telemetry, as in the reference, whose
+    prefill passes ``init_moe_state`` at every call."""
     _check_remat(remat_policy)
     cfg = model.cfg
     x = model.embed(batch["tokens"])
@@ -282,7 +343,7 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
     cache = init_decode_cache(cfg, B, cache_len, cache_dtype, x.device)
     for b, block in enumerate(model.blocks):
         for i in range(len(model.pattern)):
-            x, st = block[str(i)](x, impl=impl, return_state=True)
+            x, st, _ = block[str(i)](x, impl=impl, return_state=True)
             c = cache[str(i)]
             if model.pattern[i].kind == "attn":
                 c["k"][b, :, :S] = st["k"]

@@ -11,6 +11,11 @@ suite's tolerance for the Pallas chunk kernel) on that suite's shapes,
 a ragged d_inner, bfloat16 inputs, d_state 3 and 64, a chunk longer
 than the kernel's staging pass, falcon-mamba's smoke shape and its
 serving shape (a 128-step chunk of d_inner 8192, d_state 16).
+``dispatch_fused`` and ``dispatch_candidates`` must equal their plain
+versions bit for bit on the experts, the candidates and the steered
+flags, with weights within 1e-6, on tests/test_kernels.py's MR shapes,
+ragged T, exact ties and qwen3-moe's serving shapes (E 128, top-8,
+d 2, a 512-token prompt and one decode token).
 
 Needs a CUDA device and nvcc; skips without them.  The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -287,3 +292,93 @@ def test_cuda_chunk_scan_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="d_state"):
         kernel.chunk_scan(torch.zeros((1, 16, 65), device="cuda"), x2, dt2,
                           A2, B2, C2)
+
+
+# (T, E, k, d, f_max): tests/test_kernels.py's MR_CASES and
+# MR_FMAX_CASES, qwen3-moe's prefill and decode, dbrx's and jamba's
+# E = 16, ragged T, E not a multiple of 32, E at the kernel's limit,
+# and k + d = 16
+MR_SHAPES = [
+    (256, 8, 2, 2, 1.0), (256, 16, 4, 2, 1.0), (512, 128, 8, 4, 1.0),
+    (256, 4, 2, 2, 1.0), (256, 16, 4, 2, 0.5), (250, 16, 4, 2, 0.25),
+    (37, 8, 2, 2, 0.5), (512, 128, 8, 4, 0.25), (250, 16, 4, 2, 1.0),
+    (512, 128, 8, 2, 0.25), (512, 128, 8, 2, 1.0), (1, 128, 8, 2, 0.25),
+    (1, 128, 8, 2, 1.0), (333, 16, 2, 2, 0.25), (9, 100, 3, 5, 1.0),
+    (65, 1024, 6, 10, 1.0), (40, 48, 12, 4, 0.5), (128, 4, 4, 2, 1.0),
+]
+
+
+def _dispatch_inputs(T, E, seed, variant):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((T, E), np.float32) * 2.0
+    load = np.abs(rng.standard_normal(E).astype(np.float32)) * 3.0
+    if variant == "ties":  # a few values: many exactly equal logits
+        logits = np.round(logits) / 2.0
+        load = np.round(load)
+    if variant == "balanced":  # what serving sees: nothing steers
+        load = np.ones(E, np.float32)
+    return (torch.as_tensor(logits.astype(np.float32)).cuda(),
+            torch.as_tensor(load.astype(np.float32)).cuda())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_dispatch_kernels_match_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel, ops
+
+    fused0 = kernel.dispatch_fused.launches
+    cand0 = kernel.dispatch_candidates.launches
+    fused = cands = steered = 0
+    for (T, E, k, d, f_max), variant in itertools.product(
+            MR_SHAPES, ("random", "ties", "balanced")):
+        logits, load = _dispatch_inputs(T, E, T + E + k, variant)
+        what = str((T, E, k, d, f_max, variant))
+        kd = k + min(d, E - k)
+        ids, vals = kernel.dispatch_candidates(logits, kd)
+        want_ids, want_vals = ref.top_candidates(logits, kd)
+        torch.cuda.synchronize()
+        cands += 1
+        assert torch.equal(ids, want_ids), what
+        assert torch.equal(vals, want_vals), what
+        got = ops.midas_dispatch(logits, load, k, d, f_max=f_max,
+                                 impl="cuda")
+        want = ref.midas_dispatch(logits, load, k, d, f_max=f_max)
+        torch.cuda.synchronize()
+        if kd > k:
+            fused += f_max >= 1.0
+            cands += f_max < 1.0
+        assert torch.equal(got[0], want[0]), what
+        assert torch.equal(got[2], want[2]), what
+        np.testing.assert_allclose(got[1].cpu().numpy(),
+                                   want[1].cpu().numpy(), rtol=0,
+                                   atol=1e-6, err_msg=what)
+        steered += int(got[2].sum())
+        if variant == "balanced":
+            assert not got[2].any(), what
+    assert steered > 0
+    assert kernel.dispatch_fused.launches == fused0 + fused
+    assert kernel.dispatch_candidates.launches == cand0 + cands
+
+
+@pytest.mark.requires_cuda
+def test_cuda_dispatch_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    logits, load = _dispatch_inputs(8, 32, 0, "random")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.dispatch_candidates(logits.cpu(), 4)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.dispatch_candidates(logits.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.dispatch_candidates(logits.T.contiguous().T, 4)
+    with pytest.raises(ValueError, match="k \\+ d"):
+        kernel.dispatch_candidates(logits, 17)
+    with pytest.raises(ValueError, match="E must be"):
+        kernel.dispatch_candidates(torch.zeros((2, 1025), device="cuda"), 4)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.dispatch_fused(logits, load[:31], 2, 2)
+    with pytest.raises(ValueError, match="k and d"):
+        kernel.dispatch_fused(logits, load, 2, 0)

@@ -45,12 +45,13 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.decode_attention.kernel\n"
         "import repro_torch.kernels.ssm_scan.ops\n"
         "import repro_torch.kernels.ssm_scan.kernel\n"
-        "import repro_torch.models.mamba\n"
+        "import repro_torch.models.mamba, repro_torch.models.moe\n"
         "import repro_torch.config, repro_torch.configs\n"
         "import repro_torch.models, repro_torch.serve\n"
         "import repro_torch.launch.serve\n"
         "repro_torch.config.get_arch('smollm-360m')\n"
         "repro_torch.config.get_arch('falcon-mamba-7b')\n"
+        "repro_torch.config.get_arch('qwen3-moe-235b-a22b')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(','.join(bad))\n"
@@ -96,6 +97,7 @@ def _constructors():
 
     cfg = get_smoke_arch("smollm-360m")
     ssm = get_smoke_arch("falcon-mamba-7b")
+    moe = get_smoke_arch("qwen3-moe-235b-a22b")
     return [
         ("make_ring", lambda: hashring.make_ring(8, 4)),
         ("PRNGKey", lambda: prng.PRNGKey(0)),
@@ -118,6 +120,12 @@ def _constructors():
         ("cache_from_numpy[ssm]",
          lambda: convert.cache_from_numpy(ssm, {})),
         ("serve[ssm]", lambda: serve(ssm, RunConfig(), requests=1,
+                                     prompt_len=4, decode_len=1)),
+        ("init_params[moe]", lambda: models.init_params(moe)),
+        ("init_moe_state", lambda: models.init_moe_state(moe)),
+        ("moe_state_from_numpy",
+         lambda: convert.moe_state_from_numpy(moe, {})),
+        ("serve[moe]", lambda: serve(moe, RunConfig(), requests=1,
                                      prompt_len=4, decode_len=1)),
     ]
 

@@ -7,7 +7,9 @@ is replayed here with ``make_prefill_step`` and ``decode_step``, fed
 the port's tokens (teacher forcing), and the port's greedy token must
 be the reference's wherever the reference's top-2 logit margin exceeds
 twice the logit tolerance of tests/test_torch_models.py (1e-4 relative
-and absolute).
+and absolute).  That covers the MoE smoke configs and jamba's hybrid,
+whose routing can swap an expert on a last-bit difference of a gate
+logit.
 """
 
 import numpy as np
@@ -102,7 +104,8 @@ def _reference_loop(jcfg, params, forced, *, requests, prompt_len,
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "qwen3-moe-235b-a22b",
+                                  "dbrx-132b", "jamba-v0.1-52b"])
 def test_serve_loop_matches_the_reference_launcher(arch):
     kw = dict(requests=8, prompt_len=16, decode_len=8, replicas=4)
     jcfg, cfg = jget_smoke_arch(arch), get_smoke_arch(arch)
