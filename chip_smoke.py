@@ -46,7 +46,8 @@ Qwen3-MoE-235B-A22B.  Phases:
    each prompt; decode is plain PyTorch, as in the reference); the
    same run with the plain scan gives the same tokens wherever the
    plain run's teacher-forced top-2 margin is decisive, and
-   teacher-forced logits of the two agree;
+   teacher-forced logits of the two agree (and are reported on a
+   float32 cache too);
 9. serving at Qwen3-MoE-235B-A22B's full width (d_model 4096, 64 query
    heads over 4 KV heads, head_dim 128, 128 experts top-8 of width
    1536, midas_d 2, f_max 0.25, vocab 151936) cut to 4 of its 94
@@ -211,7 +212,9 @@ def device_ms(torch, fns, n) -> float:
     """Per-call device time: n calls captured in one CUDA graph and
     replayed between CUDA events, so no host-side cost is counted.
     Call j runs ``fns[j % len(fns)]``: several input sets whose total
-    exceeds the 50 MB L2 make every call read its inputs cold."""
+    exceeds the 50 MB L2 make every call read its inputs cold.  The
+    calls run once in the stream that captures them, so what a wrapper
+    keeps per stream is made before the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -219,7 +222,7 @@ def device_ms(torch, fns, n) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for j in range(n):
             fns[j % len(fns)]()
     graph.replay()
@@ -285,7 +288,10 @@ def phase_kernel(torch, kernel, ref):
 
 # (B, S, H, KV, D, window, softcap, dtype): the CPU tests' cases, then
 # SmolLM-360M's serving shapes (a 512-token prompt; one token against a
-# 544-row cache at its last position) and a ragged, padded-head shape
+# 544-row cache at its last position) and a ragged, padded-head shape;
+# decode also a cache no multiple of its span, rows at other positions,
+# a window narrower than a span, a 65536-row cache (spans of many
+# tiles) and Qwen3-MoE's decode shape
 FA_SHAPES = [
     (1, 128, 4, 2, 64, 0, 0.0, "float32"),
     (2, 256, 8, 8, 64, 0, 0.0, "float32"),
@@ -303,10 +309,16 @@ DA_SHAPES = [
     (2, 256, 4, 2, 64, 128, 0.0, "float32"),
     (1, 256, 8, 4, 64, 0, 50.0, "float32"),
     (4, 99, 6, 3, 20, 16, 10.0, "float32"),
+    (1, 547, 15, 5, 64, 0, 0.0, "float32"),
+    (3, 400, 8, 2, 64, 0, 0.0, "float32"),
+    (2, 300, 8, 2, 64, 3, 0.0, "float32"),
+    (1, 65536, 64, 4, 128, 0, 0.0, "float32"),
     (1, 544, 15, 5, 64, 0, 0.0, "float32"),
+    (1, 544, 64, 4, 128, 0, 0.0, "float32"),
 ]
 FA_SERVE = (1, 512, 15, 5, 64, 0, 0.0, "float32")
 DA_SERVE = (1, 544, 15, 5, 64, 0, 0.0, "float32")
+DA_MOE = (1, 544, 64, 4, 128, 0, 0.0, "float32")  # qwen3-moe's decode
 
 
 def attn_tol(dtype):
@@ -396,17 +408,19 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
         B, S, H, KV, D, window, cap, dtype = shape
         dt = getattr(torch, dtype)
         g = torch.Generator(device="cuda").manual_seed(S + H + D)
-        # the serving shape reads its cache cold, as a decode step does
-        # (the step streams the model's 1.45 GB of weights between two
-        # reads of one layer's cache): 40 input sets exceed the L2
-        n_sets = 40 if shape == DA_SERVE else 1
+        # the serving shapes read their cache cold, as a decode step does
+        # (the step streams the model's weights between two reads of one
+        # layer's cache): 40 input sets (1.4 and 2.3 MB each) exceed the
+        # L2
+        serving = shape in (DA_SERVE, DA_MOE)
+        n_sets = 40 if serving else 1
         sets = []
         for _ in range(n_sets):
             q = torch.randn((B, H, D), generator=g, device="cuda", dtype=dt)
             kc, vc = (torch.randn((B, S, KV, D), generator=g, device="cuda",
                                   dtype=dt) for _ in range(2))
             sets.append((q, kc, vc))
-        positions = [S - 1] * B if shape == DA_SERVE else torch.randint(
+        positions = [S - 1] * B if serving else torch.randint(
             1, S - 1, (B,), generator=g, device="cuda").tolist()
         pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
         kw = dict(window=window, softcap=cap)
@@ -417,6 +431,17 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
             torch.cuda.synchronize()
             err = max(err, attn_err(torch, got, want, dtype,
                                     f"decode_attention {shape}"))
+        # the merge runs in split order: a repeat is bitwise equal; and
+        # with nothing kept (pos -1) the result is the mean of v
+        q, kc, vc = sets[0]
+        check(torch.equal(da_kernel.decode_attention(q, kc, vc, pos, **kw),
+                          da_kernel.decode_attention(q, kc, vc, pos, **kw)),
+              f"decode_attention {shape}: a repeated call differs")
+        none = torch.full_like(pos, -1)
+        err = max(err, attn_err(
+            torch, da_kernel.decode_attention(q, kc, vc, none, **kw),
+            da_ref.decode_attention(q, kc, vc, none, **kw), dtype,
+            f"decode_attention {shape} pos -1"))
         max_err["decode_attention"] = max(max_err["decode_attention"], err)
         k_fns = [lambda a=a: da_kernel.decode_attention(*a, pos, **kw)
                  for a in sets]
@@ -460,7 +485,8 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
 
 # (Bt, Q, DI, ST, dtype): the CPU tests' cases, a ragged d_inner,
 # bfloat16 inputs, falcon-mamba's smoke chunk (a 16-token prompt, d_inner
-# 128, d_state 8) and its serving chunk (128 steps of d_inner 8192)
+# 128, d_state 8), chunks ragged against the kernel's 32-step pass at
+# d_state 16 and 64, and the serving chunk (128 steps of d_inner 8192)
 CS_SHAPES = [
     (2, 16, 32, 8, "float32"),
     (1, 32, 64, 16, "float32"),
@@ -468,6 +494,10 @@ CS_SHAPES = [
     (2, 40, 100, 16, "float32"),
     (2, 40, 100, 16, "bfloat16"),
     (1, 16, 128, 8, "float32"),
+    (1, 37, 64, 16, "float32"),
+    (2, 161, 100, 16, "float32"),
+    (1, 37, 24, 64, "bfloat16"),
+    (1, 161, 48, 64, "float32"),
     (1, 128, 8192, 16, "float32"),
 ]
 CS_SERVE = (1, 128, 8192, 16, "float32")
@@ -907,7 +937,7 @@ def make_model(torch, cfg, tag):
 
 
 def phase_serve(torch, np, serving, counters, model, *, tag, per_layer,
-                traffic=SERVE):
+                traffic=SERVE, f32_cache=False):
     """Serve ``model`` at full width with ``traffic``, kernels then
     plain, and check what comes out.  ``per_layer(R, P, T)`` gives the
     launches expected of each kernel per layer; every other kernel must
@@ -987,6 +1017,17 @@ def phase_serve(torch, np, serving, counters, model, *, tag, per_layer,
     say(f"[{tag}] teacher-forced logits, kernel vs plain path, all "
         f"{R} requests x {T + 1} positions: max |diff| {worst:.3g} "
         f"(allowed {SERVE_LOGIT_TOL} relative and absolute)")
+    if f32_cache:  # the same pair on a float32 cache, reported only
+        worst32 = 0.0
+        for req in range(R):
+            lk, lp = (teacher_forced(torch, models, model, prompts[req],
+                                     res.tokens[req], impl, P + T,
+                                     cache_dtype=torch.float32)
+                      for impl in ("cuda", "ref"))
+            worst32 = max(worst32, (lk - lp).abs().max().item())
+        say(f"[{tag}] the same teacher-forced logits on a float32 cache: "
+            f"kernel vs plain path max |diff| {worst32:.3g} (on the served "
+            f"bfloat16 cache {worst:.3g})")
     if exact:
         say(f"[{tag}] kernel and plain path: identical greedy tokens "
             f"({res.tokens.size})")
@@ -1199,7 +1240,8 @@ def main() -> int:
         model = make_model(torch, get_arch("falcon-mamba-7b"), 8)
         _, ssm_launches = phase_serve(
             torch, np, serving, counters, model, tag=8,
-            per_layer=lambda R, P, T: {"chunk_scan": R * -(-P // 128)})
+            per_layer=lambda R, P, T: {"chunk_scan": R * -(-P // 128)},
+            f32_cache=True)
         del model
         torch.cuda.empty_cache()
         say(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")

@@ -57,15 +57,20 @@ def build_all(
     specs: Sequence[Tuple[Path, Sequence[str]]],
 ) -> Dict[str, Tuple[float, str]]:
     """Compile every ``(source, extra flags)`` whose library does not
-    exist, all ``nvcc`` processes at once; returns source -> (seconds
-    its compile took, compiler log)."""
-    started = []
+    exist, all ``nvcc`` processes at once (one for sources of the same
+    text and flags); returns source -> (seconds its compile took,
+    compiler log)."""
+    started, same = [], {}
     for source, flags in specs:
         out = library_path(source, flags)
+        if out in same:  # the same library as another source's
+            same[out].append(source)
+            continue
         if out.exists():
             _BUILT.setdefault(str(source), (0.0, ""))
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        same[out] = [source]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -80,7 +85,8 @@ def build_all(
                           f"\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
-        _BUILT[str(source)] = (secs, log)
+        for s in same[out]:
+            _BUILT[str(s)] = (secs, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {str(s): _BUILT[str(s)] for s, _ in specs}

@@ -5,12 +5,19 @@
 suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
 bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
 SmolLM-360M (a 512-token prompt, a 544-row cache, 15 query heads over
-5 KV heads, head_dim 64), a ragged sequence and a padded head_dim.
+5 KV heads, head_dim 64), Qwen3-MoE's decode shape (64 query heads
+over 4 KV heads, head_dim 128), a ragged sequence and a padded
+head_dim; ``decode_attention`` also with a cache not a multiple of its
+span, rows at other positions, a window narrower than a span, a
+65536-row cache (spans of many tiles), nothing kept (pos -1), other
+spans than the plan's, launches on two streams at once and replayed
+from a CUDA graph, and bitwise equal on a repeated call.
 ``chunk_scan`` must agree within 1e-4 (relative and absolute, the JAX
 suite's tolerance for the Pallas chunk kernel) on that suite's shapes,
-a ragged d_inner, bfloat16 inputs, d_state 3 and 64, a chunk longer
-than the kernel's staging pass, falcon-mamba's smoke shape and its
-serving shape (a 128-step chunk of d_inner 8192, d_state 16).
+a ragged d_inner, bfloat16 inputs, d_state 3 and 64, chunks longer
+than the kernel's staging pass and ragged against it (37 and 161
+steps), falcon-mamba's smoke shape and its serving shape (a 128-step
+chunk of d_inner 8192, d_state 16).
 ``dispatch_fused`` and ``dispatch_candidates`` must equal their plain
 versions bit for bit on the experts, the candidates and the steered
 flags, with weights within 1e-6, on tests/test_kernels.py's MR shapes,
@@ -122,8 +129,17 @@ DA_SHAPES = [
     (1, 256, 8, 4, 64, 0, 50.0, "float32"),
     (1, 544, 15, 5, 64, 0, 0.0, "float32"),  # SmolLM-360M decode
     (4, 99, 6, 3, 20, 16, 10.0, "float32"),  # ragged S, padded D
-    (2, 300, 24, 2, 256, 0, 0.0, "bfloat16"),  # G = 12: three blocks
+    (2, 300, 24, 2, 256, 0, 0.0, "bfloat16"),  # G = 12, D = 256
+    (1, 65536, 64, 4, 128, 0, 0.0, "float32"),  # spans of many tiles
+    (1, 544, 64, 4, 128, 0, 0.0, "float32"),  # Qwen3-MoE decode
+    (1, 547, 15, 5, 64, 0, 0.0, "float32"),  # S no multiple of the span
+    (3, 400, 8, 2, 64, 0, 0.0, "float32"),  # rows with other positions
+    (2, 300, 8, 2, 64, 3, 0.0, "float32"),  # window narrower than a span
 ]
+# spans (rows a block takes) other than the split plan's: one-row spans
+# (up to 547 records to merge), 5, 7, one whole tile (32) and two tiles
+# and a ragged third (75)
+DA_SPANS = [1, 5, 7, 32, 75]
 
 
 def _tol(dtype):
@@ -173,10 +189,10 @@ def test_cuda_decode_attention_matches_plain_version():
         q = _randn(rng, (B, H, D), dtype)
         kc = _randn(rng, (B, S, KV, D), dtype)
         vc = _randn(rng, (B, S, KV, D), dtype)
-        # random rows, the first and last row, past the end, and a
-        # window that keeps nothing
+        # random rows (one per batch row), the first and last row, past
+        # the end, and nothing kept (-1; with a window, also S + 40)
         for pos in (rng.integers(1, S - 1, (B,)), [0] * B, [S - 1] * B,
-                    [S + 40] * B):
+                    [S + 40] * B, [-1] * B):
             pos = torch.as_tensor(np.asarray(pos, np.int32)).cuda()
             kw = dict(window=window, softcap=cap)
             got = kernel.decode_attention(q, kc, vc, pos, **kw)
@@ -188,7 +204,110 @@ def test_cuda_decode_attention_matches_plain_version():
                 got.float().cpu().numpy(), want.float().cpu().numpy(),
                 **_tol(dtype),
                 err_msg=str((B, S, H, KV, D, window, cap, dtype, pos)))
+            # the merge runs in split order: a repeat is bitwise equal
+            again = kernel.decode_attention(q, kc, vc, pos, **kw)
+            calls += 1
+            assert torch.equal(got, again)
     assert kernel.decode_attention.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("span", DA_SPANS)
+def test_cuda_decode_attention_span_overrides(span, monkeypatch):
+    """Other spans than the plan's give the same result within the
+    tolerance, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.decode_attention import kernel
+
+    monkeypatch.setattr(kernel, "split_plan",
+                        lambda B, S, KV: (span, -(-S // span)))
+    kernel._plan.cache_clear()
+    before = kernel.decode_attention.launches
+    calls = 0
+    for B, S, H, KV, D, window, cap, dtype in DA_SHAPES[-4:]:
+        rng = np.random.default_rng(S + H + D + span)
+        q = _randn(rng, (B, H, D), dtype)
+        kc = _randn(rng, (B, S, KV, D), dtype)
+        vc = _randn(rng, (B, S, KV, D), dtype)
+        for pos in (rng.integers(0, S, (B,)), [-1] * B):
+            pos = torch.as_tensor(np.asarray(pos, np.int32)).cuda()
+            kw = dict(window=window, softcap=cap)
+            got = kernel.decode_attention(q, kc, vc, pos, **kw)
+            want = da_ref.decode_attention(q, kc, vc, pos, **kw)
+            torch.cuda.synchronize()
+            calls += 1
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), want.float().cpu().numpy(),
+                **_tol(dtype), err_msg=str((B, S, H, KV, D, span, pos)))
+    kernel._plan.cache_clear()  # the plan is restored after the test
+    assert kernel.decode_attention.launches == before + calls
+
+
+def _decode_inputs(shape, seed):
+    B, S, H, KV, D, _, _, dtype = shape
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, (B, H, D), dtype), _randn(rng, (B, S, KV, D), dtype),
+            _randn(rng, (B, S, KV, D), dtype),
+            torch.as_tensor(rng.integers(0, S, (B,)).astype(np.int32)).cuda())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_decode_attention_on_two_streams_at_once():
+    """Launches in two streams that overlap keep to their own counters
+    and workspace: both give the plain version's result every time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.decode_attention import kernel
+
+    shapes = [(1, 544, 15, 5, 64, 0, 0.0, "float32"),
+              (1, 544, 64, 4, 128, 0, 0.0, "float32")]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    args = [_decode_inputs(s, i) for i, s in enumerate(shapes)]
+    wants = [da_ref.decode_attention(*a) for a in args]
+    torch.cuda.synchronize()
+    before = kernel.decode_attention.launches
+    outs = [[], []]
+    for _ in range(50):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(kernel.decode_attention(*args[i]))
+    torch.cuda.synchronize()
+    assert kernel.decode_attention.launches == before + 100
+    for i, shape in enumerate(shapes):
+        for got in outs[i]:
+            np.testing.assert_allclose(
+                got.cpu().numpy(), wants[i].cpu().numpy(),
+                **_tol(shape[-1]), err_msg=str(shape))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_decode_attention_in_a_cuda_graph():
+    """Called once in a stream, the kernel is captured in that stream
+    and replays the plain version's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.decode_attention import kernel
+
+    shape = (1, 544, 64, 4, 128, 0, 0.0, "float32")
+    q, kc, vc, pos = _decode_inputs(shape, 3)
+    want = da_ref.decode_attention(q, kc, vc, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel.decode_attention(q, kc, vc, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kernel.decode_attention.launches
+    with torch.cuda.graph(graph, stream=side):
+        out = kernel.decode_attention(q, kc, vc, pos)
+    assert kernel.decode_attention.launches == before + 1
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   **_tol("float32"))
 
 
 @pytest.mark.requires_cuda
@@ -228,6 +347,11 @@ CS_SHAPES = [
     (3, 5, 33, 3, "bfloat16"),  # ST < one lane's four states
     (1, 16, 128, 8, "float32"),  # falcon-mamba smoke
     (1, 128, 8192, 16, "float32"),  # falcon-mamba-7b prefill chunk
+    # Q neither a multiple of the 32-step pass nor under one pass
+    (1, 37, 64, 16, "float32"),
+    (2, 161, 100, 16, "float32"),
+    (1, 37, 24, 64, "bfloat16"),
+    (1, 161, 48, 64, "float32"),
 ]
 
 
