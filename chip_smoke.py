@@ -22,7 +22,9 @@ Qwen3-MoE-235B-A22B.  Phases:
    that call's time (a yardstick only; the port never calls it:
    ``scaled_dot_product_attention`` for attention, ``torch.topk`` for
    the dispatch candidates; no PyTorch call computes ``route_select``,
-   ``chunk_scan`` or the fused dispatch);
+   ``chunk_scan`` or the fused dispatch); ``flash_attention`` also at
+   Qwen3-MoE's prefill shape, with its bound on the tensor cores and
+   the CUDA cores' beside it, and bitwise equal on a repeated call;
 3. the simulator at full width (m = 64 servers, N = 10**6 keys, V = 64
    vnodes, 512 request slots per tick, T = 1200 ticks), counting
    ``route_select``'s launches;
@@ -88,6 +90,10 @@ T_FULL, R_FULL, SEED = 1200, 512, 0
 PARITY_TICKS = 1200  # phase 4 compares the whole horizon
 REPLACES = "src/repro/kernels/midas_route/kernel.py:319"
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 on the CUDA cores
+# H100 SXM dense tensor-core peaks: TF32, whose 3xTF32 split makes three
+# products of every float32 one, and bfloat16
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 # serving (phase 6): the launcher's shapes at SmolLM-360M's width
 SERVE = dict(requests=8, prompt_len=512, decode_len=32, replicas=4, seed=0)
 SERVE_LOGIT_TOL = 2e-2  # kernel vs plain teacher-forced logits, rel + abs
@@ -289,6 +295,7 @@ def phase_kernel(torch, kernel, ref):
 # (B, S, H, KV, D, window, softcap, dtype): the CPU tests' cases, then
 # SmolLM-360M's serving shapes (a 512-token prompt; one token against a
 # 544-row cache at its last position) and a ragged, padded-head shape;
+# prefill also Qwen3-MoE's 512-token prompt;
 # decode also a cache no multiple of its span, rows at other positions,
 # a window narrower than a span, a 65536-row cache (spans of many
 # tiles) and Qwen3-MoE's decode shape
@@ -301,6 +308,7 @@ FA_SHAPES = [
     (1, 256, 2, 2, 256, 128, 30.0, "bfloat16"),
     (2, 100, 6, 2, 20, 24, 20.0, "float32"),
     (1, 512, 15, 5, 64, 0, 0.0, "float32"),
+    (1, 512, 64, 4, 128, 0, 0.0, "float32"),
 ]
 DA_SHAPES = [
     (2, 256, 8, 2, 64, 0, 0.0, "float32"),
@@ -317,6 +325,7 @@ DA_SHAPES = [
     (1, 544, 64, 4, 128, 0, 0.0, "float32"),
 ]
 FA_SERVE = (1, 512, 15, 5, 64, 0, 0.0, "float32")
+FA_MOE = (1, 512, 64, 4, 128, 0, 0.0, "float32")  # qwen3-moe's prefill
 DA_SERVE = (1, 544, 15, 5, 64, 0, 0.0, "float32")
 DA_MOE = (1, 544, 64, 4, 128, 0, 0.0, "float32")  # qwen3-moe's decode
 
@@ -343,13 +352,17 @@ def kept_rows(pos, S, window) -> int:
     return max(hi - lo + 1, 0)
 
 
-def fa_bound(B, S, H, KV, D, window, itemsize):
+def fa_bound(B, S, H, KV, D, window, itemsize, rate=None):
     """(bound ms, "bytes" or "operations") of causal attention: q, k, v
     read once and the output written once against 4 D operations per
-    kept pair and head on the float32 CUDA cores the kernel uses."""
+    kept pair and head on the tensor cores the kernel uses (float32 as
+    3xTF32: the TF32 rate over 3), or at ``rate`` FLOP/s (the float32
+    CUDA cores' of the CUDA-core kernel, kept for comparison)."""
+    if rate is None:
+        rate = (BF16_FLOP_PER_S if itemsize == 2 else TF32_FLOP_PER_S / 3)
     byts = (2 * B * S * H * D + 2 * B * S * KV * D) * itemsize
     flops = 4 * D * kept_pairs(S, window) * B * H
-    t_b, t_f = byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    t_b, t_f = byts / HBM_BYTES_PER_S, flops / rate
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -390,6 +403,9 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
         torch.cuda.synchronize()
         err = attn_err(torch, got, want, dtype, f"flash_attention {shape}")
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        # key splits merge in warp order: a repeat is bitwise equal
+        check(torch.equal(got, fa_kernel.flash_attention(q, k, v, **kw)),
+              f"flash_attention {shape}: a repeated call differs")
         k_fn = lambda: fa_kernel.flash_attention(q, k, v, **kw)  # noqa: E731
         p_fn = lambda: fa_ref.mha(q, k, v, **kw)  # noqa: E731
         lib_ms = None
@@ -398,12 +414,14 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
             lib_ms = device_ms(torch, [lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)], N_GRAPH)
         bound, by = fa_bound(B, S, H, KV, D, window, q.element_size())
+        simt, _ = fa_bound(B, S, H, KV, D, window, q.element_size(),
+                           rate=FP32_FLOP_PER_S)
         rows.append(dict(
             name="flash_attention", shape=shape,
             ms=device_ms(torch, [k_fn], N_GRAPH),
             plain_ms=device_ms(torch, [p_fn], N_GRAPH),
             host_ms=host_ms(torch, k_fn), bound_ms=bound, bound_by=by,
-            library_ms=lib_ms, max_abs_err=err))
+            cuda_core_bound_ms=simt, library_ms=lib_ms, max_abs_err=err))
     for shape in DA_SHAPES:
         B, S, H, KV, D, window, cap, dtype = shape
         dt = getattr(torch, dtype)
@@ -470,12 +488,14 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
     for r in rows:
         lib = ("n/a (window or softcap)" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.3f} us")
+        simt = ("" if "cuda_core_bound_ms" not in r else
+                f", CUDA-core bound {r['cuda_core_bound_ms'] * 1e3:.3f} us")
         say(f"[2] {r['name']} (B, S, H, KV, D, window, softcap, dtype) = "
             f"{r['shape']}: agrees (max |diff| {r['max_abs_err']:.3g}); "
             f"device kernel {r['ms'] * 1e3:.3f} us, plain "
             f"{r['plain_ms'] * 1e3:.3f} us, sdpa {lib}, bound "
-            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}); called from "
-            f"Python {r['host_ms'] * 1e3:.2f} us")
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}){simt}; called "
+            f"from Python {r['host_ms'] * 1e3:.2f} us")
     return rows, max_err
 
 

@@ -4,14 +4,16 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention`` (``_body``).
 It is built with ``nvcc`` at first use (``kernels/_build.py``) and
 called through ``ctypes`` on PyTorch's current stream.  The wrapper
-checks device, dtype, shape and contiguity, allocates the output, and
-adds one to ``flash_attention.launches`` for every launch; there is no
-fallback: a tensor not on a CUDA device raises.
+checks device, dtype, shape and contiguity, picks the block's tiling
+(:func:`tile_plan`), allocates the output, and adds one to
+``flash_attention.launches`` for every launch; there is no fallback: a
+tensor not on a CUDA device raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 from typing import Tuple
@@ -25,6 +27,35 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 FLAGS = ()  # held to a tolerance, so fused multiply-adds are allowed
 MAX_D = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SUBPARTS = 132 * 4  # an H100 SXM's SM sub-partitions, a tensor core each
+
+
+def tile_plan(B: int, S: int, H: int, KV: int, D: int) -> Tuple[int, int,
+                                                                int]:
+    """(gh, nb, ks) of a block: gh query heads of one KV group and nb
+    16-row query strips, each strip's keys split over ks warps; a warp
+    per (head, strip, split), at most 8 (4 for D > 128).  Warps split
+    each strip's keys until there are two warps for every tensor core
+    (an mma.sync needs two warps of a sub-partition to reach its rate;
+    a causal strip's chain of key tiles sets the time of a short grid);
+    then the block takes the most heads of the group that fit, so that
+    a K/V tile is staged once for them, and the rest of its warps take
+    more strips."""
+    G = H // KV
+    max_warps = 4 if D > 128 else 8
+    max_ks = 2 if D > 128 else 4  # the kernel's instances
+    strips = B * H * -(-S // 16)
+    ks = 1
+    while ks < max_ks and strips * ks < 2 * SUBPARTS:
+        ks *= 2
+    gh = max(x for x in range(1, max_warps // ks + 1) if G % x == 0)
+    nb = max(1, min(4, max_warps // (gh * ks)))
+    return gh, nb, ks
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, S: int, H: int, KV: int, D: int) -> Tuple[int, int, int]:
+    return tile_plan(B, S, H, KV, D)
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,8 +65,8 @@ def _lib() -> ctypes.CDLL:
         # declared, or ctypes would pass each pointer as a 32-bit int
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-               ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
@@ -84,13 +115,14 @@ def flash_attention(
     out = torch.empty_like(q)
     if B * S == 0:
         return out
+    gh, nb, ks = _plan(B, S, H, KV, D)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, H, KV, D, DTYPES[q.dtype], 1.0 / math.sqrt(D),
-            int(causal), int(window), float(softcap), stream,
+            int(causal), int(window), float(softcap), gh, nb, ks, stream,
         )
     if err != 0:
         raise RuntimeError(

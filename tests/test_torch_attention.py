@@ -32,6 +32,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 )
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    kernel as fa_kernel,
+)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
@@ -190,6 +193,36 @@ def test_split_plan_covers_every_row_once(B, S, H, KV, D):
     if (B, S, H, KV, D) in SERVING:
         assert splits == da_kernel.MAX_SPLITS
         assert B * KV * splits >= 0.7 * da_kernel.SMS
+
+
+# (B, S, H, KV, D): the card tests' FA_SHAPES (both prefill shapes among
+# them), MHA at a long batch and a single row
+TILE_SHAPES = [
+    (1, 128, 4, 2, 64), (2, 256, 8, 8, 64), (1, 256, 4, 1, 128),
+    (1, 256, 2, 2, 256), (2, 100, 6, 2, 20), (1, 333, 8, 4, 256),
+    (3, 16, 3, 1, 20), (1, 512, 15, 5, 64), (1, 512, 64, 4, 128),
+    (1, 300, 32, 2, 64), (1, 197, 4, 1, 256), (2, 77, 4, 2, 30),
+    (8, 4096, 32, 32, 128), (1, 1, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", TILE_SHAPES)
+def test_tile_plan_fits_the_kernel(B, S, H, KV, D):
+    """flash_attention's block tiling is one the kernel instantiates:
+    stacked heads divide the KV group, at most 8 warps (4 for D > 128),
+    key splits of 1, 2 or 4 (1 or 2 for D > 128)."""
+    gh, nb, ks = fa_kernel.tile_plan(B, S, H, KV, D)
+    wide = D > 128
+    assert (H // KV) % gh == 0 and 1 <= nb <= 4
+    assert ks in ((1, 2) if wide else (1, 2, 4))
+    assert gh * nb * ks <= (4 if wide else 8)
+    # the tilings measured best at the prefill shapes (PERF.md §6):
+    # SmolLM's 480 strips split their keys four ways, Qwen3-MoE's 2048
+    # stack 8 heads of a group
+    if (B, S, H, KV, D) == (1, 512, 15, 5, 64):
+        assert (gh, nb, ks) == (1, 2, 4)
+    if (B, S, H, KV, D) == (1, 512, 64, 4, 128):
+        assert (gh, nb, ks) == (8, 1, 1)
 
 
 def _reduce_span(qg, k, v, scale, softcap, none):

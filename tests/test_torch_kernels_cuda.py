@@ -5,9 +5,14 @@
 suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
 bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
 SmolLM-360M (a 512-token prompt, a 544-row cache, 15 query heads over
-5 KV heads, head_dim 64), Qwen3-MoE's decode shape (64 query heads
-over 4 KV heads, head_dim 128), a ragged sequence and a padded
-head_dim; ``decode_attention`` also with a cache not a multiple of its
+5 KV heads, head_dim 64), Qwen3-MoE's prefill and decode shapes (64
+query heads over 4 KV heads, head_dim 128), a ragged sequence and a
+padded head_dim; ``flash_attention`` also with a ragged sequence in
+bfloat16 at each padded head_dim (64, 128, 256), 16 heads a KV group
+with a window narrower than a key tile, rows no multiple of 16 bytes
+(copied element by element), other block tilings than the
+plan's, bitwise equal on a repeated call and replayed from a CUDA
+graph; ``decode_attention`` also with a cache not a multiple of its
 span, rows at other positions, a window narrower than a span, a
 65536-row cache (spans of many tiles), nothing kept (pos -1), other
 spans than the plan's, launches on two streams at once and replayed
@@ -120,7 +125,20 @@ FA_SHAPES = [
     (2, 100, 6, 2, 20, 24, 20.0, "float32"),  # ragged S, padded D
     (1, 333, 8, 4, 256, 0, 0.0, "float32"),  # ragged S at D = 256
     (3, 16, 3, 1, 20, 0, 0.0, "float32"),  # the smoke config's heads
+    (1, 512, 64, 4, 128, 0, 0.0, "float32"),  # Qwen3-MoE prefill
+    (1, 333, 6, 2, 64, 0, 0.0, "bfloat16"),  # ragged S at each padded D
+    (1, 301, 8, 2, 128, 0, 0.0, "bfloat16"),
+    (1, 197, 4, 1, 256, 0, 0.0, "bfloat16"),
+    (1, 300, 32, 2, 64, 24, 0.0, "float32"),  # G = 16, a narrow window
+    # rows no multiple of 16 bytes: copied element by element
+    (2, 77, 4, 2, 30, 0, 0.0, "bfloat16"),
+    (1, 50, 2, 1, 7, 16, 5.0, "float32"),
 ]
+# block tilings (gh, nb, ks) other than the plan's, each on the shapes
+# whose head groups and head_dim take it: one warp a block, 64-row query
+# tiles of one head (the CUDA-core kernel's grid), 4 or 2 warps
+# splitting a strip's keys, and two heads by two strips by two splits
+FA_PLANS = [(1, 1, 1), (1, 4, 1), (1, 1, 4), (1, 2, 2), (2, 2, 2)]
 DA_SHAPES = [
     (2, 256, 8, 2, 64, 0, 0.0, "float32"),  # tests/test_kernels.py
     (1, 512, 4, 4, 64, 0, 0.0, "bfloat16"),
@@ -174,6 +192,91 @@ def test_cuda_flash_attention_matches_plain_version():
                 got.float().cpu().numpy(), want.float().cpu().numpy(),
                 **_tol(dtype), err_msg=str((B, S, H, KV, D, kw, dtype)))
     assert kernel.flash_attention.launches == before + 2 * len(FA_SHAPES)
+
+
+def _fa_inputs(shape, seed):
+    B, S, H, KV, D, _, _, dtype = shape
+    rng = np.random.default_rng(seed)
+    return tuple(_randn(rng, (B, S, n, D), dtype) for n in (H, KV, KV))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("plan", FA_PLANS)
+def test_cuda_flash_attention_plan_overrides(plan, monkeypatch):
+    """Other block tilings than the plan's give the plain version's
+    result within the tolerance, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    gh, nb, ks = plan
+    monkeypatch.setattr(kernel, "tile_plan", lambda *a: plan)
+    kernel._plan.cache_clear()
+    before = kernel.flash_attention.launches
+    calls = 0
+    for shape in FA_SHAPES:
+        B, S, H, KV, D, window, cap, dtype = shape
+        if ((H // KV) % gh or gh * nb * ks > (4 if D > 128 else 8)
+                or ks > (2 if D > 128 else 4)):
+            continue
+        q, k, v = _fa_inputs(shape, S + H + D + ks)
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = kernel.flash_attention(q, k, v, **kw)
+        want = fa_ref.mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        calls += 1
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), want.float().cpu().numpy(),
+            **_tol(dtype), err_msg=str((shape, plan)))
+    kernel._plan.cache_clear()  # the plan is restored after the test
+    assert calls >= 5
+    assert kernel.flash_attention.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_is_bitwise_repeatable():
+    """The key splits merge in warp order: a repeated call is bitwise
+    equal, at every shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    for shape in FA_SHAPES:
+        q, k, v = _fa_inputs(shape, 11)
+        kw = dict(causal=True, window=shape[5], softcap=shape[6])
+        first = kernel.flash_attention(q, k, v, **kw)
+        for _ in range(3):
+            assert torch.equal(first, kernel.flash_attention(q, k, v, **kw)), \
+                shape
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_in_a_cuda_graph():
+    """A call captured in a warmed CUDA graph replays the eager call's
+    result, bit for bit, at both prefill shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    for shape in [(1, 512, 15, 5, 64, 0, 0.0, "float32"),
+                  (1, 512, 64, 4, 128, 0, 0.0, "float32")]:
+        q, k, v = _fa_inputs(shape, 5)
+        eager = kernel.flash_attention(q, k, v)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel.flash_attention(q, k, v)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernel.flash_attention.launches
+        with torch.cuda.graph(graph, stream=side):
+            out = kernel.flash_attention(q, k, v)
+        assert kernel.flash_attention.launches == before + 1
+        for _ in range(3):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), shape
 
 
 @pytest.mark.requires_cuda

@@ -104,6 +104,7 @@ def _reference_loop(jcfg, params, forced, *, requests, prompt_len,
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b",
+                                  "stablelm-1.6b", "starcoder2-3b",
                                   "falcon-mamba-7b", "qwen3-moe-235b-a22b",
                                   "dbrx-132b", "jamba-v0.1-52b"])
 def test_serve_loop_matches_the_reference_launcher(arch):
