@@ -139,10 +139,11 @@ def main() -> int:
     for e in ops[:15]:
         print(f"[p]   {e.self_cpu_time_total:9.1f} {e.count:6d} "
               f"{100 * e.self_cpu_time_total / host_us:5.1f}% {e.key}")
-    rs = sum(c for n, c in counts.items() if "route_select" in n)
-    rs_us = sum(u for n, u in by_name.items() if "route_select" in n)
-    print(f"[p] route_select: {rs} launches, {rs_us:.1f} us "
-          f"({100 * rs_us / busy_us:.1f}% of device busy time)")
+    for kname in ("route_tick", "route_select"):
+        n = sum(c for name, c in counts.items() if kname in name)
+        us = sum(u for name, u in by_name.items() if kname in name)
+        print(f"[p] {kname}: {n} launches, {us:.1f} us "
+              f"({100 * us / busy_us:.1f}% of device busy time)")
     return 0
 
 

@@ -22,14 +22,23 @@ Qwen3-MoE-235B-A22B.  Phases:
    that call's time (a yardstick only; the port never calls it:
    ``scaled_dot_product_attention`` for attention, ``torch.topk`` for
    the dispatch candidates; no PyTorch call computes ``route_select``,
-   ``chunk_scan`` or the fused dispatch); ``flash_attention`` also at
-   Qwen3-MoE's prefill shape, with its bound on the tensor cores and
-   the CUDA cores' beside it, and bitwise equal on a repeated call;
+   ``route_tick``, ``chunk_scan`` or the fused dispatch);
+   ``route_tick`` (a tick's 8 waves of the midas policy in one launch)
+   bitwise against the engine's waves one at a time, at the engine's
+   shape, with repeated keys, live and expired pins, binding and free
+   budgets, ragged masks and a wrapping history ring;
+   ``flash_attention`` also at Qwen3-MoE's prefill shape, with its bound
+   on the tensor cores and the CUDA cores' beside it, and bitwise equal
+   on a repeated call;
 3. the simulator at full width (m = 64 servers, N = 10**6 keys, V = 64
-   vnodes, 512 request slots per tick, T = 1200 ticks), counting
-   ``route_select``'s launches;
-4. the same run with the plain version in place of the kernel, which
-   must give the same timelines bit for bit;
+   vnodes, 512 request slots per tick, T = 1200 ticks) under the midas
+   policy, counting one ``route_tick`` launch a tick and no other,
+   with its ticks/s and its kernels a tick (torch.profiler over 50
+   ticks); then 400 ticks of ``power_of_d`` at the same constants,
+   counting one ``route_select`` launch a wave and equal bit for bit to
+   its plain run;
+4. the midas run with the plain wave loop in place of the kernel, which
+   must give the same timelines, dV and final state bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
@@ -88,7 +97,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FULL = dict(m=64, N=1_000_000, V=64, d_max=4, n_groups=8)
 T_FULL, R_FULL, SEED = 1200, 512, 0
 PARITY_TICKS = 1200  # phase 4 compares the whole horizon
+POD_TICKS = 400  # the power_of_d run of phase 3
+PROFILE_LEAD, PROFILE_TICKS = 400, 50  # phase 3's kernels-a-tick window
 REPLACES = "src/repro/kernels/midas_route/kernel.py:319"
+TICK_REPLACES = (f"{REPLACES} + src/repro/core/policies/midas.py:53")
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 on the CUDA cores
 # H100 SXM dense tensor-core peaks: TF32, whose 3xTF32 split makes three
 # products of every float32 one, and bfloat16
@@ -286,6 +298,173 @@ def phase_kernel(torch, kernel, ref):
                 f"a time from Python: kernel {row['host_ms'] * 1e3:.2f} us,"
                 f" plain {row['plain_host_ms'] * 1e3:.2f} us")
     return rows, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (continued): route_tick against the waves one at a time
+# ---------------------------------------------------------------------------
+
+# (G, Rg, m, d_max, N): the engine's tick at the main path's constants
+TICK_SHAPE = (8, R_FULL // FULL["n_groups"], FULL["m"], FULL["d_max"],
+              FULL["N"])
+TICK_W = 5  # history ring of 5 waves: a tick of 8 wraps it
+# (seed, f_max, key pool): a budget that binds (0.3) and one that does
+# not (1.0); keys from pools of 8 and 40, repeated within and across
+# waves
+TICK_CASES = [(1, 0.3, 40), (2, 0.3, 8), (3, 1.0, 40), (4, 1.0, 8),
+              (5, 0.3, 40), (6, 1.0, 40)]
+
+
+def tick_case(torch, np, sim, seed, f_max, pool):
+    """One tick's engine inputs on the card, made with numpy: a ragged
+    mask, live and expired pins on the key pool, integer histories and a
+    few hot servers (so rows are eligible and steer)."""
+    from repro_torch.core import hashring, policies, prng
+    from repro_torch.core.controllers.base import Knobs
+    from repro_torch.core.policies.midas import MidasState
+
+    G, Rg, m, d_max, N = TICK_SHAPE
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x).cuda()
+
+    keypool = rng.choice(N, pool, replace=False)
+    keys = t(keypool[rng.integers(0, pool, (G, Rg))]).long()
+    mask = t(rng.random((G, Rg)) < 0.85)
+    ring = hashring.make_ring(m, FULL["V"], device="cuda")
+    policy = policies.get("midas")
+    draws = policy.draws(prng.fold_in(prng.PRNGKey(seed, "cuda")[None],
+                                      torch.arange(G, device="cuda")),
+                         (Rg, d_max))
+    now = 1000.0
+    pin_server = np.full(N, -1, np.int32)
+    pin_expiry = np.zeros(N, np.float32)
+    pin_server[keypool] = rng.integers(-1, m, pool)
+    pin_expiry[keypool] = now + rng.integers(-2, 3, pool) * 100.0
+    steer = rng.integers(0, 4, TICK_W).astype(np.float32)
+    L_hat = np.round(rng.random(m) * 6, 1).astype(np.float32)
+    L_hat[rng.integers(0, m, 4)] += 30.0
+    cfg = sim.SimConfig(policy="midas", **FULL)
+    st = sim.init_state(cfg, device="cuda")._replace(
+        L_hat=t(L_hat), p50_hat=t((rng.random(m) * 300).astype(np.float32)),
+        policy=MidasState(
+            pin_server=t(pin_server), pin_expiry=t(pin_expiry),
+            steer_hist=t(steer),
+            elig_hist=t(steer + rng.integers(0, 3, TICK_W).astype(
+                np.float32)),
+            hist_idx=t(np.int32(rng.integers(0, 3 * TICK_W)))))
+    knobs = Knobs(d=t(np.int32(3)), delta_l=t(np.float32(1.0)),
+                  delta_t=t(np.float32(-1e9)), f_max=t(np.float32(f_max)),
+                  pin_ms=t(np.float32(300.0)), ttl_scale=t(np.float32(1.0)))
+    consts = sim._Consts(torch.zeros((), device="cuda"),
+                         torch.ones((), device="cuda"),
+                         torch.ones(m, device="cuda"))
+    return (cfg, policy, st, knobs, t(np.float32(now)), keys, mask,
+            hashring.feasible_set(ring, keys, d_max), draws, consts)
+
+
+def clone(tree):
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.clone()
+    items = [clone(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def tick_bytes(np, keys, W, changed) -> int:
+    """Bytes one tick must move, each read or written once: per row its
+    key (8 B), mask (1 B), and per slot feas (4), rank (1) and tie (4);
+    the pin entries (8 B) of the tick's distinct keys; L_hat and p50;
+    six knobs; the histories and hist_idx; then assign (4 B a row), the
+    views (4 B a server a wave), arrivals, two counts, hist_idx, the
+    history slots written and the pin entries the tick changed."""
+    G, Rg, m, d_max, _ = TICK_SHAPE
+    rows = G * Rg
+    distinct = int(np.unique(keys.cpu().numpy()).size)
+    reads = rows * (9 + 9 * d_max) + 8 * distinct + 8 * m + 24 + 8 * W + 4
+    writes = rows * 4 + G * m * 4 + 4 * m + 12 + 8 * min(G, W) + 8 * changed
+    return reads + writes
+
+
+def phase_route_tick(torch, np, sim, kernel):
+    """route_tick against the engine's waves one at a time, bitwise on
+    every output and on the policy state; then timed at the engine's
+    shape."""
+    fields = ("steered", "eligible", "dV")
+    steered = eligible = binds = 0
+    for seed, f_max, pool in TICK_CASES:
+        case = tick_case(torch, np, sim, seed, f_max, pool)
+        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+        out = {}
+        for impl in ("ref", "cuda"):
+            s = st._replace(policy=clone(st.policy))
+            out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys,
+                                         mask, feas, draws, impl, consts)
+        torch.cuda.synchronize()
+        (wps, wt), (gps, gt) = out["ref"], out["cuda"]
+        pairs = [("assign", wt.assign, gt.assign),
+                 ("arrivals", wt.arrivals, gt.arrivals)]
+        pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
+                  for f in fields]
+        pairs += [(f, getattr(wps, f), getattr(gps, f))
+                  for f in wps._fields]
+        for name, w, g in pairs:
+            check(w.dtype == g.dtype and torch.equal(w, g),
+                  f"route_tick {(seed, f_max, pool)}: {name} differs from "
+                  f"the waves one at a time")
+        n_st, n_el = int(gt.stats.steered), int(gt.stats.eligible)
+        steered, eligible = steered + n_st, eligible + n_el
+        binds += int(n_st < n_el)
+    check(steered > 0 and binds > 0,
+          f"route_tick cases steered {steered} of {eligible}, with a "
+          f"binding budget in {binds}: they test too little")
+    say(f"[2] route_tick: {len(TICK_CASES)} ticks at (G, Rg, m, d_max, N) "
+        f"= {TICK_SHAPE}, W={TICK_W} (keys repeated within and across "
+        f"waves, live and expired pins, ragged masks, f_max 0.3 and 1) "
+        f"equal to the waves one at a time on assign, arrivals, steered, "
+        f"eligible, dV, pin tables, histories and hist_idx (max |diff| 0; "
+        f"{steered} of {eligible} eligible steered; the budget bound in "
+        f"{binds})")
+
+    case = tick_case(torch, np, sim, *TICK_CASES[0])
+    cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+    ms = st.policy
+    before = clone(ms)
+    args = (keys, mask, feas, draws.rank, draws.tie, st.L_hat, st.p50_hat,
+            *ms)
+    kw = dict(d=knobs.d, delta_l=knobs.delta_l, delta_t=knobs.delta_t,
+              f_max=knobs.f_max, pin_ms=knobs.pin_ms, now_ms=now)
+    kernel.route_tick(*args, **kw)
+    torch.cuda.synchronize()
+    changed = int(((before.pin_server != ms.pin_server)
+                   | (before.pin_expiry != ms.pin_expiry)).sum())
+    bound = tick_bytes(np, keys, TICK_W, changed) / HBM_BYTES_PER_S * 1e3
+
+    def k_fn():
+        kernel.route_tick(*args, **kw)
+
+    def path(impl):
+        return lambda: sim._route_waves(cfg, policy, st, knobs, now, keys,
+                                        mask, feas, draws, impl, consts)
+
+    row = dict(
+        name="route_tick", shape=TICK_SHAPE,
+        ms=device_ms(torch, [k_fn], N_GRAPH),
+        plain_ms=device_ms(torch, [path("ref")], 10),
+        host_ms=host_ms(torch, k_fn),
+        tick_host_ms=host_ms(torch, path("cuda")),
+        plain_host_ms=host_ms(torch, path("ref"), 50),
+        bound_ms=bound, bound_by="bytes", library_ms=None, max_abs_err=0.0)
+    say(f"[2] route_tick midas (G, Rg, m, d_max, N) = {TICK_SHAPE}: device "
+        f"kernel {row['ms'] * 1e3:.3f} us, plain waves "
+        f"{row['plain_ms'] * 1e3:.3f} us, bound {bound * 1e3:.4f} us "
+        f"(bytes); called one at a time from Python: kernel "
+        f"{row['host_ms'] * 1e3:.2f} us, the engine's tick routing with "
+        f"it (kernel + dV) {row['tick_host_ms'] * 1e3:.2f} us, plain waves "
+        f"{row['plain_host_ms'] * 1e3:.2f} us")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -780,6 +959,29 @@ def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
+def kernels_per_tick(torch, sim, cfg, targets, wl) -> float:
+    """Device kernels a tick of the main path, counted by torch.profiler
+    over ticks PROFILE_LEAD to PROFILE_LEAD + PROFILE_TICKS (their
+    horizon set-up included), as benchmarks_torch/profile_main_path.py
+    counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lo, hi = PROFILE_LEAD, PROFILE_LEAD + PROFILE_TICKS
+    st = sim.init_state(cfg, *targets, device="cuda")
+    st, _ = sim.run_ticks(cfg, st, wl.keys[:lo], wl.mask[:lo],
+                          wl.is_write[:lo])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        sim.run_ticks(cfg, st, wl.keys[lo:hi], wl.mask[lo:hi],
+                      wl.is_write[lo:hi], t0=lo)
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    check(n > 0, "the profiler saw no device events")
+    return n / PROFILE_TICKS
+
+
 def phase_main(torch, np, core, sim, counters):
     cfg = core.SimConfig(policy="midas", middleware=("cache",),
                          cache_mode="lease", **FULL)
@@ -787,7 +989,7 @@ def phase_main(torch, np, core, sim, counters):
                             N=cfg.N, R=R_FULL, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.warmup(cfg, device="cuda")
+    targets = sim.warmup(cfg, device="cuda")
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
@@ -796,11 +998,10 @@ def phase_main(torch, np, core, sim, counters):
     res = core.simulate(cfg, wl, device="cuda")
     run_s = time.perf_counter() - t0
     counts = read_counts(counters)
-    launches = counts["route_select"]
     want = dict.fromkeys(counters, 0)
-    want["route_select"] = T_FULL * cfg.n_groups
-    say(f"[3] launches in the main path: {counts} (expected T x n_groups "
-        f"= {want['route_select']} route_select, no other kernel)")
+    want["route_tick"] = T_FULL
+    say(f"[3] launches in the main path: {counts} (expected one route_tick "
+        f"a tick, {T_FULL}, and no other kernel)")
     check(counts == want, f"{counts} launches, expected {want}")
     check_result(np, res, wl, T_FULL, cfg.m)
     state_bytes = tensor_bytes(sim.init_state(cfg, device="cuda"))
@@ -816,28 +1017,98 @@ def phase_main(torch, np, core, sim, counters):
         f"cache_hits={res.cache_hits.sum():.0f} "
         f"offered={int(wl.mask.sum().item())}")
     say(f"[3] simulate {run_s:.3f} s incl. warmup ({warm_s:.3f} s alone); "
-        f"main run {T_FULL / main_s:.1f} ticks/s; state on the card "
-        f"{state_bytes / 1e6:.2f} MB, peak allocated "
+        f"state on the card {state_bytes / 1e6:.2f} MB, peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
-    return cfg, wl, res, launches
+    per_tick = kernels_per_tick(torch, sim, cfg, targets, wl)
+    say(f"[3] main run: {T_FULL / main_s:.1f} ticks/s, {per_tick:.1f} "
+        f"kernels a tick (ticks {PROFILE_LEAD}-"
+        f"{PROFILE_LEAD + PROFILE_TICKS} profiled); card {card_line()}")
+    return cfg, wl, res, targets, counts["route_tick"]
 
 
-def phase_parity(torch, np, core, cfg, wl, res_cuda):
-    import dataclasses
+def tree_leaves(tree):
+    import torch
 
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in tree_leaves(t)]
+    return []
+
+
+def check_runs_equal(torch, a, b, what) -> None:
+    """Two run_ticks results (final state, per-tick outputs): every
+    per-tick output (dV included) and every leaf of the final state
+    bit for bit."""
+    (fa, oa), (fb, ob) = a, b
+    for f in oa._fields:
+        x, y = getattr(oa, f), getattr(ob, f)
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"{what}: kernel vs plain: per-tick {f} differs")
+    for i, (x, y) in enumerate(zip(tree_leaves(fa), tree_leaves(fb))):
+        check(x.dtype == y.dtype and torch.equal(x, y),
+              f"{what}: kernel vs plain: final state leaf {i} differs")
+
+
+def run_both(torch, sim, cfg, grid, targets):
+    """The grid from init_state with the kernels and with the plain
+    versions: {impl: ((final state, per-tick outputs), seconds)}."""
+    runs = {}
+    for impl in ("cuda", "ref"):
+        c = dataclasses.replace(cfg, route_impl=impl)
+        st = sim.init_state(c, *targets, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.run_ticks(c, st, *grid)
+        torch.cuda.synchronize()
+        runs[impl] = (out, time.perf_counter() - t0)
+    return runs
+
+
+def phase_power_of_d(torch, np, core, sim, counters, wl):
+    """The baseline policy at the main path's constants: route_select
+    once a wave, equal to its plain run bit for bit."""
+    cfg = core.SimConfig(policy="power_of_d", middleware=("cache",),
+                         cache_mode="lease", **FULL)
+    T = POD_TICKS
+    wl = wl._replace(keys=wl.keys[:T], mask=wl.mask[:T],
+                     is_write=wl.is_write[:T])
+    grid = (wl.keys, wl.mask, wl.is_write)
+    zero_counts(counters)
+    # the plain run launches no kernel, so the counts are the kernel run's
+    runs = run_both(torch, sim, cfg, grid, (0.15, 5.0 * cfg.service_ms))
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_select"] = T * cfg.n_groups
+    say(f"[3] launches in the power_of_d run: {counts} (expected T x "
+        f"n_groups = {want['route_select']} route_select, no other kernel)")
+    check(counts == want, f"{counts} launches, expected {want}")
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0], "power_of_d")
+    (_, outs), secs = runs["cuda"]
+    check_result(np, sim._to_result(cfg, outs, None), wl, T, cfg.m)
+    say(f"[3] power_of_d, {T} ticks at the same constants: {T / secs:.1f} "
+        f"ticks/s; every per-tick output (dV included) and the final state "
+        f"bit-for-bit equal to the plain route_select's run "
+        f"({runs['ref'][1]:.3f} s)")
+    return counts["route_select"]
+
+
+def phase_parity(torch, np, core, sim, cfg, wl, res, targets):
     T = PARITY_TICKS
-    cfg_ref = dataclasses.replace(cfg, route_impl="ref")
-    if T < T_FULL:
-        wl = wl._replace(keys=wl.keys[:T], mask=wl.mask[:T],
-                         is_write=wl.is_write[:T])
-    t0 = time.perf_counter()
-    res_ref = core.simulate(cfg_ref, wl, device="cuda")
-    secs = time.perf_counter() - t0
+    grid = (wl.keys[:T], wl.mask[:T], wl.is_write[:T])
+    runs = run_both(torch, sim, cfg, grid, targets)
+    (_, outs), _ = runs["cuda"]
+    again = sim._to_result(cfg, outs, None)
     for f in FIELDS:
-        a, b = getattr(res_cuda, f)[:T], getattr(res_ref, f)
-        check(np.array_equal(a, b), f"kernel vs plain: {f} differs")
-    say(f"[4] {T} ticks with the plain route_select on the card: every "
-        f"timeline bit-for-bit equal to the kernel's run ({secs:.3f} s)")
+        check(np.array_equal(getattr(res, f)[:T], getattr(again, f)),
+              f"simulate vs run_ticks: {f} differs")
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0], "midas")
+    say(f"[4] {T} ticks with the plain wave loop (route_select's plain "
+        f"version, pins and bucket in PyTorch) on the card: every timeline, "
+        f"the dV timeline and the final state (pin tables, histories, "
+        f"hist_idx) bit-for-bit equal to the route_tick run, which equals "
+        f"phase 3's (plain {runs['ref'][1]:.3f} s, kernel "
+        f"{runs['cuda'][1]:.3f} s)")
 
 
 def phase_small(np, core):
@@ -1224,6 +1495,7 @@ def main() -> int:
     from repro_torch.launch import serve as serving
 
     counters = {"route_select": kernel.route_select,
+                "route_tick": kernel.route_tick,
                 "flash_attention": fa_kernel.flash_attention,
                 "decode_attention": da_kernel.decode_attention,
                 "chunk_scan": cs_kernel.chunk_scan,
@@ -1240,13 +1512,16 @@ def main() -> int:
     try:
         phase_build(torch, _build, sources, loaders)
         rows, max_err = phase_kernel(torch, kernel, ref)
+        tick_row = phase_route_tick(torch, np, sim, kernel)
         attn_rows, attn_err = phase_attention(torch, fa_kernel, fa_ref,
                                               da_kernel, da_ref)
         cs_rows, cs_err = phase_chunk_scan(torch, cs_kernel, cs_ref)
         mr_rows, mr_err = phase_dispatch(torch, kernel, ref, ops)
         say(f"[2] phases 1-2 took {time.perf_counter() - t_start:.1f} s")
-        cfg, wl, res, launches = phase_main(torch, np, core, sim, counters)
-        phase_parity(torch, np, core, cfg, wl, res)
+        cfg, wl, res, targets, tick_launches = phase_main(
+            torch, np, core, sim, counters)
+        launches = phase_power_of_d(torch, np, core, sim, counters, wl)
+        phase_parity(torch, np, core, sim, cfg, wl, res, targets)
         phase_small(np, core)
         model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
@@ -1274,7 +1549,8 @@ def main() -> int:
         return 1
     main_row = next(
         r for r in rows
-        if (r["R"], r["m"], r["d_max"]) == MAIN_SHAPE and r["mode"] == "midas"
+        if (r["R"], r["m"], r["d_max"]) == MAIN_SHAPE
+        and r["mode"] == "power_of_d"
     )
     main_row = dict(main_row, bound_by="bytes", library_ms=None)
     fa_row = next(r for r in attn_rows if r["shape"] == FA_SERVE
@@ -1291,6 +1567,9 @@ def main() -> int:
         kernel_entry("route_select", csrc.format("midas_route",
                                                  "route_select"),
                      REPLACES, launches, max_err, main_row),
+        kernel_entry("route_tick", csrc.format("midas_route",
+                                               "route_select"),
+                     TICK_REPLACES, tick_launches, 0.0, tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",

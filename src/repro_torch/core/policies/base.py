@@ -19,10 +19,16 @@ made inside a tick.
 ``Policy.route(state, ctx) -> (state, assign, RouteStats)`` routes one
 wave; ``ctx.draws`` holds that wave's slice of the draws.  ``assign``
 is ``(R,)`` int32 server ids (-1 for masked-out slots).
+``Policy.route_tick(state, ctx) -> (state, TickRoute) | None`` routes a
+whole tick's waves in one kernel launch where the policy has such a
+kernel; the engine calls it only for the CUDA route impl, and routes
+wave by wave through ``route`` when it returns None (the default).
 """
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import Any, NamedTuple, Optional, Tuple, Type
 
 import torch
@@ -91,6 +97,36 @@ def steering_dv(ctx: RouteContext, assign: torch.Tensor) -> torch.Tensor:
     return torch.where(moved, dv, 0.0).sum()
 
 
+class TickRoute(NamedTuple):
+    """A tick's routing: its G waves of Rg requests."""
+
+    assign: torch.Tensor  # (G, Rg) int32 server per request, -1 masked
+    arrivals: torch.Tensor  # (m,) float32 requests sent to each server
+    stats: RouteStats  # summed over the waves in wave order
+
+
+def steering_dv_waves(
+    ctx: RouteContext, views: torch.Tensor, assign: torch.Tensor
+) -> torch.Tensor:
+    """:func:`steering_dv` of each of a tick's waves, summed in wave order.
+
+    ``ctx`` holds the tick's (G, Rg) waves, ``views`` (G, m) the view each
+    wave was routed on and ``assign`` (G, Rg) its assignments.  The terms
+    are elementwise, so computing them for all waves at once changes no
+    bit; each wave's terms are then summed on their own, in a tensor of
+    their own, as :func:`steering_dv` sums them.  So the result equals
+    the waves one at a time bit for bit.  (The sums are added from the
+    first wave's, not from 0.0: a sum that starts at +0.0 is never -0.0,
+    so 0.0 + s == s.)  G >= 1."""
+    prim = ctx.feas[..., 0]
+    moved = ctx.mask & (assign != prim) & (assign >= 0)
+    dv = 2.0 * (views.gather(1, assign.clamp(min=0).long())
+                - views.gather(1, prim.long())) + 2.0
+    sums = [torch.where(moved[g], dv[g], 0.0).sum()
+            for g in range(assign.shape[0])]
+    return functools.reduce(operator.add, sums)
+
+
 class Policy:
     """Base class for registered routing policies.
 
@@ -115,6 +151,15 @@ class Policy:
         self, state: Any, ctx: RouteContext
     ) -> Tuple[Any, torch.Tensor, RouteStats]:
         raise NotImplementedError
+
+    def route_tick(
+        self, state: Any, ctx: RouteContext
+    ) -> Optional[Tuple[Any, TickRoute]]:
+        """Route a tick's G waves in one kernel launch, bit for bit as
+        :meth:`route` wave by wave would.  ``ctx`` holds (G, Rg) waves,
+        their (G, Rg, d_max) draws, and in ``L_view`` the stale view
+        without this tick's sends.  Default: None, no such kernel."""
+        return None
 
 
 REGISTRY = registry_lib.Registry("policy")

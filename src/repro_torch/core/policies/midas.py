@@ -21,10 +21,12 @@ from repro_torch.core import prng
 from repro_torch.core.policies.base import (
     Policy,
     RouteStats,
+    TickRoute,
     WaveDraws,
     register,
     sample_ranks,
     steering_dv,
+    steering_dv_waves,
 )
 from repro_torch.core.xla import set_last
 from repro_torch.kernels.common import resolve_device
@@ -171,3 +173,24 @@ class Midas(Policy):
             eligible=stats.eligible,
             dV=steering_dv(ctx, assign),
         )
+
+    def route_tick(self, state: MidasState, ctx):
+        """The tick's G waves in one launch of the ``route_tick`` kernel:
+        route_select's test, the pins, the leaky bucket and the history
+        ring of :func:`route_midas` for every wave in order.  The dV is
+        taken from the kernel's per-wave views and assignments with the
+        per-wave path's operations (``steering_dv_waves``)."""
+        k = ctx.knobs
+        assign, views, arrivals, steered, eligible, hist_idx = (
+            route_ops.route_tick(
+                ctx.keys, ctx.mask, ctx.feas, ctx.draws.rank,
+                ctx.draws.tie, ctx.L_view, ctx.p50_view, state.pin_server,
+                state.pin_expiry, state.steer_hist, state.elig_hist,
+                state.hist_idx, d=k.d, delta_l=k.delta_l,
+                delta_t=k.delta_t, f_max=k.f_max, pin_ms=k.pin_ms,
+                now_ms=ctx.now_ms,
+            ))
+        stats = RouteStats(steered=steered, eligible=eligible,
+                           dV=steering_dv_waves(ctx, views, assign))
+        return state._replace(hist_idx=hist_idx), TickRoute(
+            assign=assign, arrivals=arrivals, stats=stats)

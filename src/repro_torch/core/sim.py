@@ -45,6 +45,7 @@ from repro_torch.core.controllers.base import Knobs, Signals
 from repro_torch.core.policies.base import (
     RouteContext,
     RouteStats,
+    TickRoute,
     WaveDraws,
 )
 from repro_torch.core.workloads import Workload, make_workload
@@ -350,10 +351,31 @@ def _route_waves(
     consts: _Consts,
 ):
     """Route one tick's G waves in order; each wave sees the stale EWMA
-    view plus this tick's own sends from the earlier waves."""
+    view plus this tick's own sends from the earlier waves.  With the
+    CUDA impl a policy that has a kernel for a whole tick
+    (``Policy.route_tick``: midas) routes it in one launch; otherwise,
+    and always on the CPU, the waves run one at a time, which is that
+    kernel's plain version.  Returns (policy state, TickRoute)."""
     ps = state.policy
+    if impl == "cuda":
+        tick = policy.route_tick(ps, RouteContext(
+            keys=keysg,
+            mask=maskg,
+            feas=feasg,
+            L_view=state.L_hat,
+            p50_view=state.p50_hat,
+            knobs=knobs,
+            now_ms=now_ms,
+            draws=draws,
+            m=cfg.m,
+            fixed_d=cfg.fixed_d,
+            route_impl=impl,
+        ))
+        if tick is not None:
+            return tick
     sent = torch.zeros_like(state.L)
     stats = RouteStats(consts.zero, consts.zero, consts.zero)
+    assigns = []
     for g in range(keysg.shape[0]):
         ctx = RouteContext(
             keys=keysg[g],
@@ -373,7 +395,9 @@ def _route_waves(
         ps, assign, st = policy.route(ps, ctx)
         sent = sent + _wave_counts(cfg.m, maskg[g], assign)
         stats = stats + st
-    return ps, sent, stats
+        assigns.append(assign)
+    return ps, TickRoute(assign=torch.stack(assigns), arrivals=sent,
+                         stats=stats)
 
 
 def _signals(
@@ -463,11 +487,12 @@ def _tick(
     draws = None if hz.draws is None else WaveDraws(
         *(x[t] for x in hz.draws)
     )
-    ps, arrivals, stats = _route_waves(
+    ps, routed = _route_waves(
         cfg, policy, state, controller.view(state.ctrl), now_ms,
         hz.keysg[t], _wave_split(cfg, mask), hz.feasg[t], draws, impl,
         consts,
     )
+    arrivals, stats = routed.arrivals, routed.stats
 
     # --- queue dynamics: constant-rate servers, work-conserving ----------
     L = state.L + arrivals

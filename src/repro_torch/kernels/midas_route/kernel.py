@@ -2,7 +2,11 @@
 
 ``route_select`` (``csrc/route_select.cu``) replaces the Pallas TPU
 kernel ``repro/kernels/midas_route/kernel.py:route_select``
-(``_route_body``).  ``dispatch_fused`` and ``dispatch_candidates``
+(``_route_body``).  ``route_tick`` (the same source) routes a whole tick
+of the midas policy in one launch: route_select's midas test for each of
+the tick's G waves, with the pins, the leaky bucket and the history ring
+of ``repro/core/policies/midas.py:route_midas`` between them, bit for
+bit the waves one at a time.  ``dispatch_fused`` and ``dispatch_candidates``
 (both in ``csrc/midas_dispatch.cu``) replace the two passes of its
 ``midas_dispatch``: ``_body`` (``f_max >= 1``) and ``_cand_body``
 (pass 1 of ``f_max < 1``).  Each source is built with ``nvcc`` at first
@@ -27,6 +31,9 @@ from repro_torch.kernels.midas_route.ref import ROUTE_MODES, check_mode
 SOURCE = Path(__file__).resolve().parent / "csrc" / "route_select.cu"
 MAX_D = 16
 MAX_M = 6144  # 2·m float32 staged in 48 KB of shared memory
+# route_tick stages 3·m float32 and 13 bytes a row of one wave in shared
+# memory: at MAX_M and MAX_RG that is 176 KB of the block's 227 KB
+MAX_RG = 8192
 FLAGS = _build.EXACT_FLAGS  # bit-equal to the plain version
 DISPATCH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "midas_dispatch.cu"
@@ -36,13 +43,14 @@ MAX_KD = 16  # k + d: one candidate a lane, and the reference's limit
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE, FLAGS)
-    fn = lib.route_select_launch
-    if fn.argtypes is None:
+    if lib.route_select_launch.argtypes is None:
         # declared, or ctypes would pass each pointer as a 32-bit int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
+        lib.route_select_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.route_select_launch.restype = ctypes.c_int
+        lib.route_tick_launch.argtypes = (
+            [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.route_tick_launch.restype = ctypes.c_int
     return lib
 
 
@@ -60,8 +68,8 @@ def _dispatch_lib() -> ctypes.CDLL:
 
 
 def build() -> Tuple[float, str]:
-    """Build and load ``route_select``; returns (build seconds, nvcc
-    log)."""
+    """Build and load ``route_select`` and ``route_tick``; returns (build
+    seconds, nvcc log)."""
     _lib()
     return _build.build_info(SOURCE)
 
@@ -127,6 +135,108 @@ def route_select(
 
 
 route_select.launches = 0
+
+
+def route_tick(
+    keys: torch.Tensor,
+    mask: torch.Tensor,
+    feas: torch.Tensor,
+    rank: torch.Tensor,
+    tie: torch.Tensor,
+    L_hat: torch.Tensor,
+    p50: torch.Tensor,
+    pin_server: torch.Tensor,
+    pin_expiry: torch.Tensor,
+    steer_hist: torch.Tensor,
+    elig_hist: torch.Tensor,
+    hist_idx: torch.Tensor,
+    *,
+    d: torch.Tensor,
+    delta_l: torch.Tensor,
+    delta_t: torch.Tensor,
+    f_max: torch.Tensor,
+    pin_ms: torch.Tensor,
+    now_ms: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Route one tick's G waves of the midas policy in one launch.
+
+    keys (G, Rg) int64 in [0, N), mask (G, Rg) bool, feas (G, Rg, d_max)
+    int32, rank (G, Rg, d_max) int8 and tie (G, Rg, d_max) float32 are
+    the waves and their draws; L_hat and p50 (m,) float32 the stale
+    telemetry (wave g routes on L_hat plus the sends of waves 0..g-1);
+    pin_server (N,) int32, pin_expiry (N,) float32, steer_hist and
+    elig_hist (W,) float32 and hist_idx () int32 the policy state; the
+    knobs and the tick clock are 0-d tensors (d int32, the rest float32).
+
+    Returns (assign (G, Rg) int32, views (G, m) float32: the view each
+    wave was routed on, arrivals (m,) float32, steered () float32,
+    eligible () float32, the new hist_idx () int32).  The pin tables
+    and the histories are updated in place.  Equal bit for bit to the
+    waves one at a time through ``core.policies.midas.route_midas``.
+    """
+    if feas.dim() != 3:
+        raise ValueError(f"feas must be (G, Rg, d_max), got {feas.shape}")
+    G, Rg, d_max = feas.shape
+    m, N, W = L_hat.numel(), pin_server.numel(), steer_hist.numel()
+    if not 1 <= d_max <= MAX_D:
+        raise ValueError(f"d_max must be in [1, {MAX_D}], got {d_max}")
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"m must be in [1, {MAX_M}], got {m}")
+    if Rg > MAX_RG:
+        raise ValueError(f"a wave's rows Rg must be <= {MAX_RG}, got {Rg}")
+    if not 1 <= N < 2**31:
+        raise ValueError(f"N must be in [1, 2**31), got {N}")
+    if W < 1:
+        raise ValueError(f"the history window must hold >= 1 wave, got {W}")
+    dev = feas.device
+    for name, t, dtype, shape in (
+        ("keys", keys, torch.int64, (G, Rg)),
+        ("mask", mask, torch.bool, (G, Rg)),
+        ("feas", feas, torch.int32, (G, Rg, d_max)),
+        ("rank", rank, torch.int8, (G, Rg, d_max)),
+        ("tie", tie, torch.float32, (G, Rg, d_max)),
+        ("L_hat", L_hat, torch.float32, (m,)),
+        ("p50", p50, torch.float32, (m,)),
+        ("pin_server", pin_server, torch.int32, (N,)),
+        ("pin_expiry", pin_expiry, torch.float32, (N,)),
+        ("steer_hist", steer_hist, torch.float32, (W,)),
+        ("elig_hist", elig_hist, torch.float32, (W,)),
+        ("hist_idx", hist_idx, torch.int32, ()),
+        ("d", d, torch.int32, ()),
+        ("delta_l", delta_l, torch.float32, ()),
+        ("delta_t", delta_t, torch.float32, ()),
+        ("f_max", f_max, torch.float32, ()),
+        ("pin_ms", pin_ms, torch.float32, ()),
+        ("now_ms", now_ms, torch.float32, ()),
+    ):
+        _check(name, t, dtype, shape, dev)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"the CUDA route_tick needs tensors on a CUDA device, got "
+            f"{dev}; on the CPU the engine routes the waves one at a time"
+        )
+    f32 = dict(dtype=torch.float32, device=dev)
+    assign = torch.empty((G, Rg), dtype=torch.int32, device=dev)
+    views = torch.empty((G, m), **f32)
+    arrivals = torch.empty((m,), **f32)
+    steered = torch.empty((), **f32)
+    eligible = torch.empty((), **f32)
+    new_idx = torch.empty((), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.route_tick_launch(*(t.data_ptr() for t in (
+            keys, mask, feas, rank, tie, L_hat, p50, d, delta_l, delta_t,
+            f_max, pin_ms, now_ms, pin_server, pin_expiry, steer_hist,
+            elig_hist, hist_idx, assign, views, arrivals, steered,
+            eligible, new_idx,
+        )), G, Rg, d_max, m, N, W, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"route_tick launch failed: cudaError {err}")
+    route_tick.launches += 1
+    return assign, views, arrivals, steered, eligible, new_idx
+
+
+route_tick.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-``route_select`` must equal its plain version bit for bit;
+``route_select`` must equal its plain version bit for bit, and
+``route_tick`` the engine's waves one at a time through it (assignments,
+arrivals, counts, dV, pin tables, histories and ``hist_idx``), with
+repeated keys, live and expired pins, binding and free budgets, one
+wave, every row masked or pinned, a budget of 0, 4096 rows a wave, and
+replayed from a CUDA graph;
 ``flash_attention`` and ``decode_attention`` must agree within the JAX
 suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
 bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
@@ -111,6 +116,158 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
         kernel.route_select(feas.cpu(), load.cpu(), p50.cpu(),
                             sampled.cpu(), tie.cpu(), scal.cpu(),
                             mode="midas")
+
+
+# route_tick cases: (seed, G, Rg, f_max, key pool, variant) at m = 64,
+# d_max = 4, N = 10**6 and a 5-wave history ring (so a tick wraps it):
+# chip_smoke's phase-2 cases, then one wave, every row masked, every row
+# pinned, a budget of 0 and 4096 rows a wave (16 chunks of the block)
+TICK_CASES = [
+    (1, 8, 64, 0.3, 40, "plain"), (2, 8, 64, 0.3, 8, "plain"),
+    (3, 8, 64, 1.0, 40, "plain"), (4, 8, 64, 1.0, 8, "plain"),
+    (5, 1, 64, 0.3, 40, "plain"), (6, 8, 64, 0.3, 40, "masked"),
+    (7, 8, 64, 0.3, 40, "pinned"), (8, 8, 64, 0.0, 40, "plain"),
+    (9, 2, 4096, 1.0, 500, "plain"), (10, 3, 300, 0.3, 30, "plain"),
+]
+
+
+def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
+               N=10**6, W=5):
+    """One tick's engine inputs on the card, made with numpy: keys from a
+    small pool (repeated within and across waves), a ragged mask, live
+    and expired pins on the pool, integer histories, hot servers."""
+    from repro_torch.core import hashring, policies, prng
+    from repro_torch.core import sim as tsim
+    from repro_torch.core.controllers.base import Knobs
+    from repro_torch.core.policies.midas import MidasState
+
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(x).cuda()  # noqa: E731
+    keypool = rng.choice(N, pool, replace=False)
+    keys = t(keypool[rng.integers(0, pool, (G, Rg))]).long()
+    mask = t(rng.random((G, Rg)) < 0.85)
+    if variant == "masked":
+        mask[:] = False
+    feas = hashring.feasible_set(hashring.make_ring(m, 64, device="cuda"),
+                                 keys, d_max)
+    policy = policies.get("midas")
+    draws = policy.draws(prng.fold_in(prng.PRNGKey(seed, "cuda")[None],
+                                      torch.arange(G, device="cuda")),
+                         (Rg, d_max))
+    now = 1000.0
+    pin_server = np.full(N, -1, np.int32)
+    pin_expiry = np.zeros(N, np.float32)
+    pin_server[keypool] = rng.integers(-1, m, pool)
+    pin_expiry[keypool] = now + rng.integers(-2, 3, pool) * 100.0
+    if variant == "pinned":
+        pin_server[keypool] = rng.integers(0, m, pool)
+        pin_expiry[keypool] = now + 500.0
+    steer = rng.integers(0, 4, W).astype(np.float32)
+    state = MidasState(
+        pin_server=t(pin_server), pin_expiry=t(pin_expiry),
+        steer_hist=t(steer),
+        elig_hist=t(steer + rng.integers(0, 3, W).astype(np.float32)),
+        hist_idx=t(np.int32(rng.integers(0, 3 * W))))
+    L_hat = np.round(rng.random(m) * 6, 1).astype(np.float32)
+    L_hat[rng.integers(0, m, 4)] += 30.0
+    cfg = tsim.SimConfig(m=m, N=N, d_max=d_max, n_groups=G)
+    st = tsim.init_state(cfg, device="cuda")._replace(
+        L_hat=t(L_hat), p50_hat=t((rng.random(m) * 300).astype(np.float32)),
+        policy=state)
+    knobs = Knobs(d=t(np.int32(3)), delta_l=t(np.float32(1.0)),
+                  delta_t=t(np.float32(-1e9)), f_max=t(np.float32(f_max)),
+                  pin_ms=t(np.float32(300.0)), ttl_scale=t(np.float32(1.0)))
+    consts = tsim._Consts(*(torch.ones((), device="cuda") * v
+                            for v in (0.0, 1.0)), torch.ones(m,
+                                                             device="cuda"))
+    return cfg, policy, st, knobs, t(np.float32(now)), keys, mask, feas, \
+        draws, consts
+
+
+def _clone(tree):
+    if torch.is_tensor(tree):
+        return tree.clone()
+    items = [_clone(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def _route_tick_both(case):
+    """The tick through the plain wave loop and through the kernel, each
+    from its own copy of the state."""
+    from repro_torch.core import sim as tsim
+
+    cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+    out = {}
+    for impl in ("ref", "cuda"):
+        s = st._replace(policy=_clone(st.policy))
+        out[impl] = tsim._route_waves(cfg, policy, s, knobs, now, keys,
+                                      mask, feas, draws, impl, consts)
+    torch.cuda.synchronize()
+    return out["ref"], out["cuda"]
+
+
+def _assert_ticks_equal(want, got, what):
+    (wps, wt), (gps, gt) = want, got
+    pairs = [("assign", wt.assign, gt.assign),
+             ("arrivals", wt.arrivals, gt.arrivals)]
+    pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
+              for f in ("steered", "eligible", "dV")]
+    pairs += [(f, getattr(wps, f), getattr(gps, f)) for f in wps._fields]
+    for name, w, g in pairs:
+        assert w.dtype == g.dtype and torch.equal(w, g), (what, name)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_route_tick_matches_the_waves_one_at_a_time():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    steered = 0
+    for case in TICK_CASES:
+        before = kernel.route_tick.launches
+        want, got = _route_tick_both(_tick_case(*case))
+        assert kernel.route_tick.launches == before + 1, case
+        _assert_ticks_equal(want, got, case)
+        steered += int(got[1].stats.steered)
+        if case[-1] in ("masked", "pinned") or case[3] == 0.0:
+            assert int(got[1].stats.steered) == 0, case
+    assert steered > 0
+
+
+@pytest.mark.requires_cuda
+def test_cuda_route_tick_in_a_cuda_graph():
+    """Captured once, the tick replays the plain loop's result from the
+    same state (restored before each replay: the kernel updates the pin
+    tables and histories in place)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import sim as tsim
+    from repro_torch.kernels.midas_route import kernel
+
+    case = _tick_case(*TICK_CASES[1])
+    want, _ = _route_tick_both(case)
+    cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+    saved = _clone(st.policy)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tsim._route_waves(cfg, policy, st, knobs, now, keys, mask, feas,
+                          draws, "cuda", consts)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kernel.route_tick.launches
+    with torch.cuda.graph(graph, stream=side):
+        got = tsim._route_waves(cfg, policy, st, knobs, now, keys, mask,
+                                feas, draws, "cuda", consts)
+    assert kernel.route_tick.launches == before + 1
+    for _ in range(3):
+        for x, y in zip(st.policy, saved):
+            x.copy_(y)
+        got[1].assign.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_ticks_equal(want, got, "graph replay")
 
 
 # (B, S, H, KV, D, window, softcap, dtype)

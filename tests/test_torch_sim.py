@@ -41,11 +41,19 @@ FIELDS = (
 CONFIGS = {
     "pod_bare": dict(policy="power_of_d", middleware=()),
     "midas_cache": dict(policy="midas", middleware=("cache",)),
+    "midas_ttl_aggregate": dict(policy="midas", middleware=("cache",),
+                                cache_mode="ttl_aggregate"),
+    "midas_ttl_per_key": dict(policy="midas", middleware=("cache",),
+                              cache_mode="ttl_per_key"),
 }
 WL = jmake("bursty", T=160, m=8, seed=3, N=512)
 # 20 s always holds a burst, so MIDAS steers and pins; the T=160 grid
 # above (the reference's golden horizon) holds none
 WL_BURST = jmake("bursty", T=400, m=8, seed=3, N=512)
+# the paper's baseline workloads beside bursty, realized by the reference
+GRIDS = {160: WL, 400: WL_BURST}
+GRIDS.update({name: jmake(name, T=400, m=8, seed=3, N=512)
+              for name in ("periodic", "skewed")})
 
 
 def _port_workload(wl):
@@ -64,18 +72,20 @@ def _assert_results_match(want, got):
             np.testing.assert_array_equal(g, w, err_msg=f)
 
 
-@pytest.mark.parametrize("name,horizon", [
-    ("pod_bare", 160), ("midas_cache", 160), ("midas_cache", 400)])
-def test_simulate_matches_live_reference(name, horizon):
+@pytest.mark.parametrize("name,grid", [
+    ("pod_bare", 160), ("midas_cache", 160), ("midas_cache", 400),
+    ("midas_ttl_aggregate", 400), ("midas_ttl_per_key", 400),
+    ("midas_cache", "periodic"), ("midas_cache", "skewed")])
+def test_simulate_matches_live_reference(name, grid):
     kw = CONFIGS[name]
-    wl = WL if horizon == 160 else WL_BURST
+    wl = GRIDS[grid]
     want = jsimulate(JConfig(m=8, N=512, **kw), wl, do_warmup=False)
     got = tsim.simulate(tsim.SimConfig(m=8, N=512, **kw),
                         _port_workload(wl), do_warmup=False, device="cpu")
     _assert_results_match(want, got)
-    if horizon == 400:
+    if grid == 400:
         assert got.steered.sum() > 0 and got.queue_timeline.max() > 4
-    if name == "midas_cache":
+    if "cache" in kw.get("middleware", ()):
         assert got.cache_hits.sum() > 0
         for f in ("hits", "misses", "stale_serves", "bypasses"):
             assert int(getattr(want.final_cache, f)) == int(

@@ -1,0 +1,235 @@
+"""A tick of MIDAS routing: the port's plain wave loop equals the live
+JAX engine's ``_route_waves_scan``, and the CUDA ``route_tick``'s
+wrapper checks its inputs and refuses CPU tensors.
+
+The plain loop (``core/sim.py:_route_waves`` with the plain impl) is
+``route_tick``'s plain version: it is what runs on the CPU, and what the
+kernel is held against on the card (``tests/test_torch_kernels_cuda.py``,
+``chip_smoke.py`` phase 2).  The inputs are made with numpy and hold keys
+repeated within a wave and across waves, live and expired pins, a budget
+that binds and a history ring shorter than the tick, so it wraps.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import SimConfig as JConfig  # noqa: E402
+from repro.core import hashring as jring  # noqa: E402
+from repro.core import sim as jsim  # noqa: E402
+from repro.core.controllers.base import Knobs as JKnobs  # noqa: E402
+from repro.core.policies import midas as jmidas  # noqa: E402
+from repro_torch.core import policies as tpol  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.core import sim as tsim  # noqa: E402
+from repro_torch.core.controllers.base import Knobs  # noqa: E402
+from repro_torch.core.policies import midas as tmidas  # noqa: E402
+from repro_torch.core.policies.base import (  # noqa: E402
+    RouteContext,
+    WaveDraws,
+    steering_dv_waves,
+)
+from repro_torch.kernels.midas_route import kernel, ops  # noqa: E402
+
+M, N, D_MAX, G, RG, W = 16, 2048, 4, 4, 24, 3
+NOW, PIN_MS = 1000.0, 300.0
+
+
+class _Recording(jmidas.Midas):
+    """The reference's midas policy, logging each wave's assignment in
+    its carried state (the scan returns no per-wave output)."""
+
+    def route(self, state, ctx):
+        ms, log, g = state
+        ms, assign, st = super().route(ms, ctx)
+        return (ms, log.at[g].set(assign), g + 1), assign, st
+
+
+def _tick_inputs(seed, f_max, pool):
+    rng = np.random.default_rng(seed)
+    keypool = rng.choice(N, pool, replace=False)
+    keys = keypool[rng.integers(0, pool, (G, RG))].astype(np.int32)
+    mask = rng.random((G, RG)) < 0.85
+    feas = np.asarray(jring.feasible_set(jring.make_ring(M, 16),
+                                         jnp.asarray(keys), D_MAX))
+    pin_server = np.full(N, -1, np.int32)
+    pin_expiry = np.zeros(N, np.float32)
+    pin_server[keypool] = rng.integers(-1, M, pool)
+    # expiry before, at and after the tick clock: live and expired pins
+    pin_expiry[keypool] = NOW + rng.integers(-2, 3, pool) * 100.0
+    steer = rng.integers(0, 4, W).astype(np.float32)
+    state = dict(
+        pin_server=pin_server,
+        pin_expiry=pin_expiry,
+        steer_hist=steer,
+        elig_hist=steer + rng.integers(0, 3, W).astype(np.float32),
+        hist_idx=np.int32(rng.integers(0, 2 * W)),
+    )
+    L_hat = np.round(rng.random(M) * 6, 1).astype(np.float32)
+    L_hat[rng.integers(0, M, 3)] += 25.0  # hot servers: many steers
+    p50 = (rng.random(M) * 300).astype(np.float32)
+    knobs = dict(d=np.int32(3), delta_l=np.float32(1.0),
+                 delta_t=np.float32(-1e9), f_max=np.float32(f_max),
+                 pin_ms=np.float32(PIN_MS), ttl_scale=np.float32(1.0))
+    return keys, mask, feas, state, L_hat, p50, knobs
+
+
+def _port_tick(seed, f_max, pool, r_route):
+    keys, mask, feas, state, L_hat, p50, knobs = _tick_inputs(
+        seed, f_max, pool)
+    cfg = tsim.SimConfig(m=M, N=N, d_max=D_MAX, n_groups=G)
+    policy = tpol.get("midas")
+    t = torch.as_tensor
+    waves = prng.fold_in(t(np.array(r_route)).long()[None, :],
+                         torch.arange(G))
+    st = tsim.init_state(cfg, device="cpu")._replace(
+        L_hat=t(L_hat), p50_hat=t(p50),
+        policy=tmidas.MidasState(**{k: t(v) for k, v in state.items()}))
+    consts = tsim._Consts(torch.zeros(()), torch.ones(()), torch.ones(M))
+    ps, tick = tsim._route_waves(
+        cfg, policy, st, Knobs(**{k: t(v) for k, v in knobs.items()}),
+        torch.tensor(NOW), t(keys).long(), t(mask), t(feas),
+        policy.draws(waves, (RG, D_MAX)), "ref", consts)
+    return ps, tick, (t(keys).long(), t(mask), t(feas), t(L_hat))
+
+
+@pytest.mark.parametrize("f_max,pool", [(0.3, 6), (0.3, 60), (1.0, 60)])
+def test_plain_tick_matches_reference_scan(f_max, pool):
+    seed = 3 + pool
+    keys, mask, feas, state, L_hat, p50, knobs = _tick_inputs(
+        seed, f_max, pool)
+    r_route = jax.random.PRNGKey(seed)
+    jcfg = JConfig(m=M, N=N, d_max=D_MAX, n_groups=G)
+    jst = jsim.init_state(jcfg, 0.15, 500.0)._replace(
+        L_hat=jnp.asarray(L_hat), p50_hat=jnp.asarray(p50),
+        policy=(jmidas.MidasState(**{k: jnp.asarray(v)
+                                     for k, v in state.items()}),
+                jnp.zeros((G, RG), jnp.int32), 0))
+    (jms, jlog, _), jarr, jstats = jsim._route_waves_scan(
+        jcfg, jring.make_ring(M, 16), _Recording(), jst,
+        JKnobs(**{k: jnp.asarray(v) for k, v in knobs.items()}), 0,
+        jnp.float32(NOW), r_route, jnp.asarray(keys), jnp.asarray(mask),
+        jnp.asarray(feas))
+    ps, tick, _ = _port_tick(seed, f_max, pool, r_route)
+
+    np.testing.assert_array_equal(np.asarray(jlog), tick.assign.numpy())
+    np.testing.assert_array_equal(np.asarray(jarr), tick.arrivals.numpy())
+    for f in ("steered", "eligible", "dV"):
+        w, g = np.asarray(getattr(jstats, f)), getattr(tick.stats, f)
+        assert w.dtype == g.numpy().dtype and w == g.numpy(), f
+    for f in jmidas.MidasState._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jms, f)),
+                                      getattr(ps, f).numpy(), err_msg=f)
+    steered, eligible = int(tick.stats.steered), int(tick.stats.eligible)
+    assert 0 < steered <= eligible
+    if f_max < 1.0:
+        assert steered < eligible  # the budget binds
+    moved = tick.assign.numpy() != feas[..., 0]
+    if pool == 6:  # a key steered twice in a wave: the last steer pins
+        assert any(np.unique(keys[g][moved[g] & mask[g]]).size
+                   < (moved[g] & mask[g]).sum() for g in range(G))
+
+
+@pytest.mark.parametrize("f_max,pool", [(0.3, 6), (1.0, 60)])
+def test_tick_dv_from_views_equals_the_waves(f_max, pool):
+    """The kernel path's dV (``steering_dv_waves`` on the per-wave views
+    and assignments) equals the plain loop's, bit for bit."""
+    ps, tick, (keys, mask, feas, L_hat) = _port_tick(
+        5, f_max, pool, jax.random.PRNGKey(5))
+    counts = torch.zeros((G, M))
+    for g in range(G):
+        counts[g] = tsim._wave_counts(M, mask[g], tick.assign[g])
+    views = L_hat + (torch.cumsum(counts, 0) - counts)
+    ctx = RouteContext(keys=keys, mask=mask, feas=feas, L_view=L_hat,
+                       p50_view=None, knobs=None, now_ms=None, draws=None,
+                       m=M, fixed_d=2)
+    dv = steering_dv_waves(ctx, views, tick.assign)
+    assert float(tick.stats.dV) != 0.0
+    assert dv.dtype == tick.stats.dV.dtype and torch.equal(dv,
+                                                           tick.stats.dV)
+
+
+def _cpu_args(G_=2, Rg=8, m=8, d_max=4, n=64, w=3):
+    rng = np.random.default_rng(0)
+    t = torch.as_tensor
+    args = [
+        t(rng.integers(0, n, (G_, Rg))).long(),
+        t(rng.random((G_, Rg)) < 0.9),
+        t(rng.integers(0, m, (G_, Rg, d_max))).int(),
+        t(rng.integers(0, d_max, (G_, Rg, d_max))).to(torch.int8),
+        t(rng.random((G_, Rg, d_max))).float(),
+        torch.zeros(m), torch.zeros(m),
+        torch.full((n,), -1, dtype=torch.int32), torch.zeros(n),
+        torch.zeros(w), torch.zeros(w),
+        torch.zeros((), dtype=torch.int32),
+    ]
+    knobs = dict(d=torch.tensor(2, dtype=torch.int32),
+                 delta_l=torch.tensor(1.0), delta_t=torch.tensor(0.0),
+                 f_max=torch.tensor(0.3), pin_ms=torch.tensor(300.0),
+                 now_ms=torch.tensor(50.0))
+    return args, knobs
+
+
+def test_route_tick_on_cpu_tensors_raises():
+    args, knobs = _cpu_args()
+    before = kernel.route_tick.launches
+    for fn in (kernel.route_tick, ops.route_tick):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(*args, **knobs)
+    assert kernel.route_tick.launches == before
+
+
+def _bad(name):
+    """Arguments with one fault, named by ``name``."""
+    if name == "m":
+        args, knobs = _cpu_args(m=kernel.MAX_M + 1)
+    elif name == "d_max":
+        args, knobs = _cpu_args(d_max=kernel.MAX_D + 1)
+    elif name == "Rg":
+        args, knobs = _cpu_args(G_=1, Rg=kernel.MAX_RG + 1)
+    else:
+        args, knobs = _cpu_args()
+    if name == "keys dtype":
+        args[0] = args[0].int()
+    elif name == "mask shape":
+        args[1] = args[1][:, :-1]
+    elif name == "tie contiguous":
+        args[4] = args[4].transpose(0, 1).contiguous().transpose(0, 1)
+    elif name == "feas rank":
+        args[2] = args[2][0]
+    elif name == "knob shape":
+        knobs["f_max"] = knobs["f_max"].reshape(1)
+    elif name == "d dtype":
+        knobs["d"] = knobs["d"].float()
+    elif name == "window":
+        args[9], args[10] = torch.zeros(0), torch.zeros(0)
+    return args, knobs
+
+
+@pytest.mark.parametrize("name,match", [
+    ("m", "m must be"), ("d_max", "d_max must be"), ("Rg", "Rg must be"),
+    ("keys dtype", "keys has dtype"), ("mask shape", "mask has shape"),
+    ("tie contiguous", "tie must be contiguous"), ("feas rank", "feas must"),
+    ("knob shape", "f_max has shape"), ("d dtype", "d has dtype"),
+    ("window", "window"),
+])
+def test_route_tick_checks_its_inputs_before_any_launch(name, match):
+    args, knobs = _bad(name)
+    before = kernel.route_tick.launches
+    with pytest.raises(ValueError, match=match):
+        kernel.route_tick(*args, **knobs)
+    assert kernel.route_tick.launches == before
+
+
+def test_only_midas_has_a_tick_kernel():
+    args, _ = _cpu_args()
+    ctx = RouteContext(keys=args[0], mask=args[1], feas=args[2],
+                       L_view=args[5], p50_view=args[6], knobs=None,
+                       now_ms=None, draws=WaveDraws(args[3], args[4]),
+                       m=8, fixed_d=2)
+    for name in ("power_of_d", "hash"):
+        assert tpol.get(name).route_tick((), ctx) is None
