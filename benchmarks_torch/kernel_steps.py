@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the design steps of ``flash_attention``, ``decode_attention``
-and ``chunk_scan`` on the card, cold, at the serving shapes.
+"""Time the design steps of ``flash_attention``, ``decode_attention``,
+``chunk_scan`` and the MoE dispatch on the card at the serving shapes.
 
     python3 benchmarks_torch/kernel_steps.py [--parent DIR]
-        [--only flash_attention decode_attention chunk_scan]
+        [--only flash_attention decode_attention chunk_scan dispatch]
 
 Each variant is first checked against the plain version, then timed as
 ``chip_smoke.py`` phase 2 times a kernel: calls over input sets that
@@ -29,7 +29,15 @@ Variants:
   element, so the 16-byte path is not taken); and the plan alone at a
   65536-row cache of Qwen3-MoE's widths;
 - ``chunk_scan`` at falcon-mamba-7b's serving chunk: 16-byte ``cp.async``
-  copies, and 4-byte ones (inputs offset by one element).
+  copies, and 4-byte ones (inputs offset by one element);
+- the MoE dispatch at qwen3-moe's decode token and prompt (T = 1 and
+  512, E 128, top-8, d 2), hot as in ``chip_smoke.py`` phase 2:
+  ``dispatch_candidates`` and ``dispatch_fused`` under the wrapper's
+  selection plan and other rows a block (``SelectPlan``), pass 2
+  of f_max 0.25 (``dispatch_steer``; in the other checkout, if it has
+  none, ``ref.steer_from_candidates`` in PyTorch), and both passes of
+  f_max 0.25 one after the other, under a skewed load and under the
+  serving path's balanced one, each also called from Python.
 
 Some steps are copies of this checkout's source with one part put back
 as it was, built into ``build/`` (``PATCHES``): ``decode_attention``
@@ -70,7 +78,7 @@ DA_LONG = (1, 65536, 64, 4, 128, 0, 0.0, "float32")
 DA_TIMED = [cs.DA_SERVE, cs.DA_MOE, DA_LONG]
 N_SETS = 40
 PARENT = "the other checkout's kernel"  # the --parent rows' label
-KERNELS = ("flash_attention", "decode_attention", "chunk_scan")
+KERNELS = ("flash_attention", "decode_attention", "chunk_scan", "dispatch")
 FA_TIMED = [cs.FA_SERVE, cs.FA_MOE]
 FA_COLD_BYTES = 64e6  # input sets of a flash_attention timing, in all
 # flash_attention's design switches, each set otherwise in a copy
@@ -204,6 +212,23 @@ class TilePlan:
 
     def __exit__(self, *exc):
         self.kernel.tile_plan = self.saved
+        self.kernel._plan.cache_clear()
+
+
+class SelectPlan:
+    """Within the block, the midas_route wrapper ``kernel`` runs its
+    selection with ``plan`` rows a block for every shape."""
+
+    def __init__(self, kernel, plan):
+        self.kernel, self.plan = kernel, plan
+
+    def __enter__(self):
+        self.saved = self.kernel.select_plan
+        self.kernel.select_plan = lambda T, E: self.plan
+        self.kernel._plan.cache_clear()
+
+    def __exit__(self, *exc):
+        self.kernel.select_plan = self.saved
         self.kernel._plan.cache_clear()
 
 
@@ -375,6 +400,86 @@ def time_cs(torch, kernel, ref, label, misalign=False):
                 ms=cs.device_ms(torch, fns, 24), max_abs_err=err)
 
 
+# other rows a block than the wrapper's selection plan
+DISPATCH_PLANS = [1, 2, 4, 8]
+F_MAX = 0.25  # qwen3-moe's published cap
+
+
+def time_dispatch(torch, km, ref, shape, label, plan=None):
+    """``km``'s dispatch kernels at ``shape`` (T, E, k, d), each checked
+    against the plain version first: the two row kernels with ``plan``
+    rows a block (None: the wrapper's plan), and with the wrapper's plan
+    pass 2 and both passes of f_max 0.25, under a skewed load and under
+    the serving path's balanced one."""
+    T, E, k, d = shape
+    kd = k + d
+    logits, load = cs.dispatch_inputs(torch, T, E, 7, "random")
+    with SelectPlan(km, plan) if plan else nullcontext():
+        ids, vals = km.dispatch_candidates(logits, kd)
+        want = ref.top_candidates(logits, kd)
+        cs.check(torch.equal(ids, want[0])
+                 and torch.equal(vals, want[1]),
+                 f"{label} {shape}: candidates differ")
+        got = km.dispatch_fused(logits, load, k, d)
+        want = ref.midas_dispatch(logits, load, k, d, f_max=1.0)
+        cs.check(torch.equal(got[0], want[0])
+                 and torch.equal(got[2], want[2])
+                 and (got[1] - want[1]).abs().max().item() <= cs.W_TOL,
+                 f"{label} {shape}: fused dispatch differs")
+        fns = {"dispatch_candidates":
+               lambda: km.dispatch_candidates(logits, kd),
+               "dispatch_fused":
+               lambda: km.dispatch_fused(logits, load, k, d)}
+        out = [dict(kernel=name, shape=shape, variant=label,
+                    ms=cs.device_ms(torch, [fn], cs.N_GRAPH),
+                    host_ms=cs.host_ms(torch, fn), max_abs_err=0.0)
+               for name, fn in fns.items()]
+    if plan is not None:
+        return out
+    cand, vals = km.dispatch_candidates(logits, kd)
+    for tag, ld in (("skewed load", load),
+                    ("balanced load", torch.ones_like(load))):
+        if hasattr(km, "dispatch_steer"):
+            def steer(c=cand, v=vals, ld=ld):
+                return km.dispatch_steer(c, v, ld, k, f_max=F_MAX)
+        else:  # the parent tree's pass 2: PyTorch ops
+            def steer(c=cand, v=vals, ld=ld):
+                return ref.steer_from_candidates(c, v, ld, k, f_max=F_MAX)
+        got = steer()
+        want = ref.steer_from_candidates(cand, vals, ld, k, f_max=F_MAX)
+        err = (got[1] - want[1]).abs().max().item()
+        cs.check(torch.equal(got[0], want[0])
+                 and torch.equal(got[2], want[2]) and err <= cs.W_TOL,
+                 f"{label} {shape} {tag}: pass 2 differs")
+        for name, fn in (
+                (f"pass 2 at f_max {F_MAX}, {tag}", steer),
+                (f"both passes at f_max {F_MAX}, {tag}",
+                 lambda steer=steer: steer(*km.dispatch_candidates(logits,
+                                                                   kd)))):
+            out.append(dict(kernel=name, shape=shape, variant=label,
+                            ms=cs.device_ms(torch, [fn], cs.N_GRAPH),
+                            host_ms=cs.host_ms(torch, fn), max_abs_err=err))
+    return out
+
+
+def dispatch_turn(torch, km, ref, who):
+    rows = []
+    for shape in cs.MR_TIMED:
+        T, E = shape[:2]
+        if who != "this":
+            rows += time_dispatch(torch, km, ref, shape, f"{who}: {PARENT}")
+            continue
+        rows += time_dispatch(torch, km, ref, shape,
+                              f"this: plan, {km.select_plan(T, E)} rows a "
+                              f"block")
+        for plan in DISPATCH_PLANS:
+            if plan == km.select_plan(T, E) or plan > T:
+                continue
+            rows += time_dispatch(torch, km, ref, shape,
+                                  f"this: {plan} rows a block", plan)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
@@ -392,19 +497,27 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.midas_route import kernel as mr
+    from repro_torch.kernels.midas_route import ref as mr_ref
     from repro_torch.kernels.ssm_scan import kernel as sc
     from repro_torch.kernels.ssm_scan import ref as sc_ref
 
     card = cs.card_line()
     print(card, flush=True)
     subs = {"flash_attention": "flash_attention",
-            "decode_attention": "decode_attention", "chunk_scan": "ssm_scan"}
+            "decode_attention": "decode_attention", "chunk_scan": "ssm_scan",
+            "dispatch": "midas_route"}
     mods = {"this": {"flash_attention": fa, "decode_attention": da,
-                     "chunk_scan": sc}}
+                     "chunk_scan": sc, "dispatch": mr}}
     if args.parent is not None:
         mods["parent"] = {name: load_parent(args.parent, subs[name])
                           for name in args.only}
-    specs = {(who, name): (mods[who][name].SOURCE, mods[who][name].FLAGS)
+
+    def source(mod, name):
+        return mod.DISPATCH_SOURCE if name == "dispatch" else mod.SOURCE
+
+    specs = {(who, name): (source(mods[who][name], name),
+                           mods[who][name].FLAGS)
              for who in mods for name in args.only}
     built = _build.build_all(list(specs.values()))
     for (who, name), (source, flags) in specs.items():
@@ -413,8 +526,9 @@ def main() -> int:
     order = (["parent", "this", "this", "parent"] if "parent" in mods
              else ["this", "this"])
     rows = []
-    for name in args.only:
-        mods["this"][name]._lib()  # built above; the copies in parallel
+    for name in args.only:  # built above; the copies in parallel
+        mod = mods["this"][name]
+        (mod._dispatch_lib if name == "dispatch" else mod._lib)()
     jobs = {key: (da if key[0] == "decode_attention" else sc, [edit])
             for key, edit in PATCHES.items() if key[0] in args.only}
     if "flash_attention" in args.only:
@@ -452,6 +566,10 @@ def main() -> int:
                             rows.append(dict(time_da(
                                 torch, da, da_ref, shape,
                                 f"this, patched: {label}"), turn=turn))
+    for turn, who in enumerate(order):
+        if "dispatch" in args.only:
+            rows += [dict(r, turn=turn) for r in dispatch_turn(
+                torch, mods[who]["dispatch"], mr_ref, who)]
     for turn, who in enumerate(order):
         if "chunk_scan" not in args.only:
             continue

@@ -22,14 +22,18 @@ Qwen3-MoE-235B-A22B.  Phases:
    that call's time (a yardstick only; the port never calls it:
    ``scaled_dot_product_attention`` for attention, ``torch.topk`` for
    the dispatch candidates; no PyTorch call computes ``route_select``,
-   ``route_tick``, ``chunk_scan`` or the fused dispatch);
+   ``route_tick``, ``chunk_scan``, the fused dispatch or the steering);
    ``route_tick`` (a tick's 8 waves of the midas policy in one launch)
    bitwise against the engine's waves one at a time, at the engine's
    shape, with repeated keys, live and expired pins, binding and free
    budgets, ragged masks and a wrapping history ring;
    ``flash_attention`` also at Qwen3-MoE's prefill shape, with its bound
    on the tensor cores and the CUDA cores' beside it, and bitwise equal
-   on a repeated call;
+   on a repeated call; ``dispatch_steer`` against
+   ``ref.steer_from_candidates`` on the same candidates (f_max below 1,
+   0 and 1, one token, 5000 tokens), the whole dispatch at both f_max
+   called from Python, and the launch floor (a one-element op in the
+   same graph replay);
 3. the simulator at full width (m = 64 servers, N = 10**6 keys, V = 64
    vnodes, 512 request slots per tick, T = 1200 ticks) under the midas
    policy, counting one ``route_tick`` launch a tick and no other,
@@ -63,13 +67,14 @@ Qwen3-MoE-235B-A22B.  Phases:
    heads over 4 KV heads, head_dim 128, 128 experts top-8 of width
    1536, midas_d 2, f_max 0.25, vocab 151936) cut to 4 of its 94
    layers (11.19 B parameters, 44.8 GB in float32, random from seed
-   0) with phase 6's traffic, counting ``dispatch_candidates`` (one
-   launch per layer per prefill and per decode step), both attention
-   kernels and no other; tokens under the margin rule against the
-   plain path; the serving path's telemetry is balanced, so nothing
+   0) with phase 6's traffic, counting ``dispatch_candidates`` and
+   ``dispatch_steer`` (one launch each per layer per prefill and per
+   decode step), both attention kernels and no other; tokens under the
+   margin rule against the plain path; the serving path's telemetry is
+   balanced, so nothing
    steers, as in the reference; then 2 requests through the f_max = 1
    variant on the same weights, which launches ``dispatch_fused``
-   instead.
+   instead; decode ms a token of both.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -789,9 +794,16 @@ MR_SHAPES = [
     (1, 128, 8, 2, 1.0), (512, 16, 4, 2, 0.25), (512, 16, 2, 2, 0.25),
     (1, 16, 4, 2, 0.25),
 ]
+# dispatch_steer beyond MR_SHAPES' f_max < 1 cases: f_max 0, the margin
+# rule, the most tokens whose state stays in shared memory, and a batch
+# whose state leaves it (kernel.STEER_SMEM_T)
+STEER_EXTRA = [(300, 16, 4, 2, 0.0), (300, 16, 4, 2, 1.0),
+               (1, 128, 8, 2, 0.0), (4096, 128, 8, 2, 0.25),
+               (5000, 128, 8, 2, 0.25)]
 # timed: qwen3-moe's decode token (the JSON row) and prefill
 MR_TIMED = [(1, 128, 8, 2), (512, 128, 8, 2)]
 MR_SERVE = (1, 128, 8, 2)
+PARENT_FMAX_PATH_MS = "4.0-6.5 ms"  # the f_max 0.25 dispatch, parent tree
 
 
 def dispatch_inputs(torch, T, E, seed, variant):
@@ -809,23 +821,32 @@ def dispatch_inputs(torch, T, E, seed, variant):
     return logits.contiguous(), load
 
 
-def dispatch_bound(T, E, k, kd, fused):
-    """(bound ms, "bytes" or "operations"): the logits (and the load)
-    read once and the outputs written once (candidates: ids int32 and
-    logits float32 per candidate; fused: experts int32, weights float32
-    and one steered byte per slot), against the (k+d)·E compare-selects
-    of a row at the float32 rate."""
-    byts = 4 * T * E + (4 * E + 9 * T * k if fused else 8 * T * kd)
-    ops = T * E * kd
+def dispatch_bound(T, E, k, kd, name):
+    """(bound ms, "bytes" or "operations") of a dispatch kernel: its
+    inputs read once and outputs written once, against its operations
+    at the float32 rate.  Candidates: the logits in, ids int32 and
+    logits float32 per candidate out, the (k+d)·E compare-selects of a
+    row; fused: the logits and the load in, experts int32, weights
+    float32 and one steered byte per slot out, the same compares;
+    steer: the candidates and the load in, the fused kernel's outputs
+    out, the k·T·4 key passes of its radix select."""
+    if name == "dispatch_steer":
+        byts, ops = 8 * T * kd + 4 * E + 9 * T * k, k * T * 4
+    elif name == "dispatch_fused":
+        byts, ops = 4 * T * E + 4 * E + 9 * T * k, T * E * kd
+    else:
+        byts, ops = 4 * T * E + 8 * T * kd, T * E * kd
     t_b, t_o = byts / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def phase_dispatch(torch, kernel, ref, ops):
-    """Both dispatch kernels against the plain version on identical
+    """The three dispatch kernels against the plain version on identical
     inputs: candidates, experts and steered flags equal, weights within
-    W_TOL; then their times at the serving shapes."""
-    err = {"dispatch_candidates": 0.0, "dispatch_fused": 0.0}
+    W_TOL; then their times at the serving shapes, the whole dispatch's
+    called from Python, and the launch floor."""
+    err = dict.fromkeys(("dispatch_candidates", "dispatch_fused",
+                         "dispatch_steer"), 0.0)
     steered = cases = 0
     for (T, E, k, d, f_max), variant in [
             (shape, v) for shape in MR_SHAPES
@@ -849,7 +870,7 @@ def phase_dispatch(torch, kernel, ref, ops):
               f"differs")
         w_err = (got[1] - want[1]).abs().max().item()
         check(w_err <= W_TOL, f"dispatch {what}: weights differ by {w_err}")
-        name = "dispatch_fused" if f_max >= 1.0 else "dispatch_candidates"
+        name = "dispatch_fused" if f_max >= 1.0 else "dispatch_steer"
         err[name] = max(err[name], w_err)
         if variant == "balanced":
             check(not bool(got[2].any()), f"dispatch {what}: a token "
@@ -857,59 +878,105 @@ def phase_dispatch(torch, kernel, ref, ops):
         steered += int(got[2].sum())
         cases += 1
     check(steered > 0, "no dispatch case steered")
-    say(f"[2] dispatch_candidates and dispatch_fused: {cases} cases "
+    say(f"[2] dispatch_candidates, dispatch_fused and dispatch_candidates +"
+        f" dispatch_steer through ops.midas_dispatch: {cases} cases "
         f"(tests/test_kernels.py's MR shapes, ragged T, ties, qwen3-moe's "
         f"serving shapes, E = 16) equal to the plain version on "
         f"candidates, experts and steered ({steered} slots steered); "
         f"weights within {max(err.values()):.3g} (allowed {W_TOL})")
+    phase_dispatch_steer(torch, kernel, ref, err)
 
+    one = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(torch, [lambda: one.add_(1.0)], N_GRAPH)
+    say(f"[2] launch floor: a one-element add_ in the same graph replay "
+        f"takes {floor_ms * 1e3:.3f} us of device time a call")
     rows = []
     for T, E, k, d in MR_TIMED:
         kd = k + d
         logits, load = dispatch_inputs(torch, T, E, 7, "random")
-        for name, fused in (("dispatch_candidates", False),
-                            ("dispatch_fused", True)):
-            if fused:
-                k_fn = lambda: kernel.dispatch_fused(  # noqa: E731
-                    logits, load, k, d)
-                p_fn = lambda: ref.midas_dispatch(  # noqa: E731
-                    logits, load, k, d, f_max=1.0)
-                lib_ms = None
-                path = (lambda: ops.midas_dispatch(  # noqa: E731
-                    logits, load, k, d, f_max=1.0, impl="cuda"), p_fn)
-            else:
-                k_fn = lambda: kernel.dispatch_candidates(  # noqa: E731
-                    logits, kd)
-                p_fn = lambda: ref.top_candidates(logits, kd)  # noqa: E731
-                lib_ms = device_ms(torch, [lambda: torch.topk(logits, kd)],
-                                   N_GRAPH)
-                path = (lambda: ops.midas_dispatch(  # noqa: E731
-                    logits, load, k, d, f_max=0.25, impl="cuda"),
-                    lambda: ref.midas_dispatch(
-                        logits, load, k, d, f_max=0.25))
-            bound, by = dispatch_bound(T, E, k, kd, fused)
+        cand, vals = kernel.dispatch_candidates(logits, kd)
+        fns = {  # name: (kernel, plain version, library call or None)
+            "dispatch_candidates": (
+                lambda: kernel.dispatch_candidates(logits, kd),
+                lambda: ref.top_candidates(logits, kd),
+                lambda: torch.topk(logits, kd)),
+            "dispatch_fused": (
+                lambda: kernel.dispatch_fused(logits, load, k, d),
+                lambda: ref.midas_dispatch(logits, load, k, d, f_max=1.0),
+                None),
+            "dispatch_steer": (
+                lambda: kernel.dispatch_steer(cand, vals, load, k,
+                                              f_max=0.25),
+                lambda: ref.steer_from_candidates(cand, vals, load, k,
+                                                  f_max=0.25),
+                None),
+        }
+        for name, (k_fn, p_fn, lib_fn) in fns.items():
+            bound, by = dispatch_bound(T, E, k, kd, name)
             rows.append(dict(
-                name=name, shape=(T, E, k, d), ms=device_ms(
-                    torch, [k_fn], N_GRAPH),
+                name=name, shape=(T, E, k, d),
+                ms=device_ms(torch, [k_fn], N_GRAPH),
                 plain_ms=device_ms(torch, [p_fn], N_GRAPH),
                 host_ms=host_ms(torch, k_fn),
-                path_ms=host_ms(torch, path[0], 200),
-                plain_path_ms=host_ms(torch, path[1], 200),
-                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by,
+                library_ms=(None if lib_fn is None
+                            else device_ms(torch, [lib_fn], N_GRAPH)),
                 max_abs_err=err[name]))
+        for f_max in (0.25, 1.0):
+            path = host_ms(torch, lambda: ops.midas_dispatch(
+                logits, load, k, d, f_max=f_max, impl="cuda"), 200)
+            plain = host_ms(torch, lambda: ref.midas_dispatch(
+                logits, load, k, d, f_max=f_max), 200)
+            parent = (f"; the parent tree's kernel path took "
+                      f"{PARENT_FMAX_PATH_MS} (PERF.md)" if f_max < 1 else "")
+            say(f"[2] the whole dispatch at f_max {f_max}, (T, E, k, d) = "
+                f"{(T, E, k, d)}, called from Python: kernel path "
+                f"{path * 1e3:.1f} us, plain {plain * 1e3:.1f} us{parent}")
     for r in rows:
         lib = ("none computes it" if r["library_ms"] is None
                else f"torch.topk {r['library_ms'] * 1e3:.3f} us")
-        path = ("f_max 1" if r["name"] == "dispatch_fused"
-                else "f_max 0.25 with the quantile and steering")
         say(f"[2] {r['name']} (T, E, k, d) = {r['shape']}: device kernel "
             f"{r['ms'] * 1e3:.3f} us, plain {r['plain_ms'] * 1e3:.3f} us, "
             f"{lib}, bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}); "
-            f"called from Python {r['host_ms'] * 1e3:.2f} us; the whole "
-            f"dispatch ({path}) called from Python: kernel path "
-            f"{r['path_ms'] * 1e3:.1f} us, plain "
-            f"{r['plain_path_ms'] * 1e3:.1f} us")
+            f"called from Python {r['host_ms'] * 1e3:.2f} us; launch floor "
+            f"{floor_ms * 1e3:.3f} us")
     return rows, err
+
+
+def phase_dispatch_steer(torch, kernel, ref, err):
+    """dispatch_steer against ref.steer_from_candidates on the same
+    candidates, at every f_max < 1 case of MR_SHAPES and STEER_EXTRA:
+    experts and steered equal, weights within W_TOL; a decode token
+    (T = 1) and f_max 0 steer nothing."""
+    cases = steered = 0
+    shapes = [s for s in MR_SHAPES if s[4] < 1.0] + STEER_EXTRA
+    for (T, E, k, d, f_max), variant in [
+            (shape, v) for shape in shapes
+            for v in ("random", "ties", "balanced")]:
+        logits, load = dispatch_inputs(torch, T, E, T + E + k + d, variant)
+        what = f"(T, E, k, d, f_max) = {(T, E, k, d, f_max)} {variant}"
+        cand, vals = kernel.dispatch_candidates(logits, k + d)
+        got = kernel.dispatch_steer(cand, vals, load, k, f_max=f_max)
+        want = ref.steer_from_candidates(cand, vals, load, k, f_max=f_max)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]), f"dispatch_steer {what}: "
+              f"experts differ")
+        check(torch.equal(got[2], want[2]), f"dispatch_steer {what}: "
+              f"steered differs")
+        w_err = (got[1] - want[1]).abs().max().item()
+        check(w_err <= W_TOL, f"dispatch_steer {what}: weights differ by "
+              f"{w_err}")
+        err["dispatch_steer"] = max(err["dispatch_steer"], w_err)
+        if T == 1 or f_max <= 0.0 or variant == "balanced":
+            check(not bool(got[2].any()), f"dispatch_steer {what}: steered")
+        steered += int(got[2].sum())
+        cases += 1
+    check(steered > 0, "no dispatch_steer case steered")
+    say(f"[2] dispatch_steer: {cases} cases (MR shapes at f_max < 1, f_max "
+        f"0 and 1, T = 1, T = 5000 beyond shared memory) equal to "
+        f"ref.steer_from_candidates on the same candidates on experts and "
+        f"steered ({steered} slots steered; none at T = 1, f_max 0 or "
+        f"balanced load); weights within {err['dispatch_steer']:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -1409,9 +1476,10 @@ def rebind(models, model, cfg):
 
 def phase_moe(torch, np, serving, counters):
     """Qwen3-MoE at full width, 4 layers: the SERVE traffic through
-    ``dispatch_candidates`` (f_max 0.25), a check that the serving
-    path's balanced telemetry steers nothing, then the f_max = 1
-    variant's run through ``dispatch_fused`` on the same weights."""
+    ``dispatch_candidates`` and ``dispatch_steer`` (f_max 0.25), a check
+    that the serving path's balanced telemetry steers nothing, then the
+    f_max = 1 variant's run through ``dispatch_fused`` on the same
+    weights; decode ms a token of both runs."""
     from repro_torch import models
     from repro_torch.config import get_arch
     from repro_torch.serve import MidasRouter
@@ -1421,9 +1489,10 @@ def phase_moe(torch, np, serving, counters):
     say(f"[9] {full.name}: cut to {MOE_LAYERS} of its {full.num_layers} "
         f"layers (depth only; every width as published)")
     model = make_model(torch, cfg, 9)
-    _, launches = phase_serve(
+    capped, launches = phase_serve(
         torch, np, serving, counters, model, tag=9,
         per_layer=lambda R, P, T: {"dispatch_candidates": R * (1 + T),
+                                   "dispatch_steer": R * (1 + T),
                                    "flash_attention": R,
                                    "decode_attention": R * T})
     prompt = torch.as_tensor(replay_traffic(
@@ -1442,12 +1511,16 @@ def phase_moe(torch, np, serving, counters):
         cfg.moe, midas_fmax=1.0))
     fused_model = rebind(models, model, fused_cfg)
     traffic = dict(SERVE, requests=MOE_FUSED_REQUESTS)
-    _, fused_launches = phase_serve(
+    fused, fused_launches = phase_serve(
         torch, np, serving, counters, fused_model, tag=9,
         per_layer=lambda R, P, T: {"dispatch_fused": R * (1 + T),
                                    "flash_attention": R,
                                    "decode_attention": R * T},
         traffic=traffic)
+    say(f"[9] decode: {capped.decode_ms_per_token():.3f} ms per token at "
+        f"f_max {cfg.moe.midas_fmax} ({SERVE['requests']} requests), "
+        f"{fused.decode_ms_per_token():.3f} ms per token at f_max 1 "
+        f"({MOE_FUSED_REQUESTS} requests)")
     return launches, fused_launches
 
 
@@ -1500,7 +1573,8 @@ def main() -> int:
                 "decode_attention": da_kernel.decode_attention,
                 "chunk_scan": cs_kernel.chunk_scan,
                 "dispatch_candidates": kernel.dispatch_candidates,
-                "dispatch_fused": kernel.dispatch_fused}
+                "dispatch_fused": kernel.dispatch_fused,
+                "dispatch_steer": kernel.dispatch_steer}
     sources = [(kernel.SOURCE, kernel.FLAGS),
                (kernel.DISPATCH_SOURCE, kernel.FLAGS),
                (fa_kernel.SOURCE, fa_kernel.FLAGS),
@@ -1592,6 +1666,10 @@ def main() -> int:
                      "src/repro/kernels/midas_route/kernel.py:66",
                      fused_launches["dispatch_fused"],
                      mr_err["dispatch_fused"], mr_row["dispatch_fused"]),
+        kernel_entry("dispatch_steer", mr_src,
+                     "src/repro/kernels/midas_route/kernel.py:207",
+                     moe_launches["dispatch_steer"],
+                     mr_err["dispatch_steer"], mr_row["dispatch_steer"]),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

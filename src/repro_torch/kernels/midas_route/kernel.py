@@ -9,24 +9,33 @@ of ``repro/core/policies/midas.py:route_midas`` between them, bit for
 bit the waves one at a time.  ``dispatch_fused`` and ``dispatch_candidates``
 (both in ``csrc/midas_dispatch.cu``) replace the two passes of its
 ``midas_dispatch``: ``_body`` (``f_max >= 1``) and ``_cand_body``
-(pass 1 of ``f_max < 1``).  Each source is built with ``nvcc`` at first
-use (``kernels/_build.py``) and called through ``ctypes`` on PyTorch's
-current stream.  A wrapper checks device, dtype, shape and contiguity,
-allocates the outputs, and adds one to its own ``launches`` for every
-launch; there is no fallback: a tensor not on a CUDA device raises.
+(pass 1 of ``f_max < 1``); ``dispatch_steer`` (the same source) is
+pass 2 of ``f_max < 1``, the f_max quantile and the steering that the
+TPU code runs in XLA between them.  Each source is built with ``nvcc``
+at first use (``kernels/_build.py``) and called through ``ctypes`` on
+PyTorch's current stream.  A wrapper checks device, dtype, shape and
+contiguity, allocates the outputs, and adds one to its own ``launches``
+for every launch; there is no fallback: a tensor not on a CUDA device
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensor as _check
-from repro_torch.kernels.midas_route.ref import ROUTE_MODES, check_mode
+from repro_torch.kernels.midas_route.ref import (
+    ROUTE_MODES,
+    check_mode,
+    quantile_plan,
+)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "route_select.cu"
 MAX_D = 16
@@ -37,8 +46,11 @@ MAX_RG = 8192
 FLAGS = _build.EXACT_FLAGS  # bit-equal to the plain version
 DISPATCH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "midas_dispatch.cu"
-MAX_E = 1024  # 32 logits a lane in registers
-MAX_KD = 16  # k + d: one candidate a lane, and the reference's limit
+MAX_E = 1024
+MAX_KD = 16  # k + d: the reference's limit, and 4 bits of a best alternate
+# dispatch_steer keeps 8 bytes a token in shared memory up to this many
+# tokens, beyond it in a scratch buffer (csrc kSteerSmemT)
+STEER_SMEM_T = 4096
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,12 +70,16 @@ def _dispatch_lib() -> ctypes.CDLL:
     lib = _build.load(DISPATCH_SOURCE, FLAGS)
     if lib.dispatch_fused_launch.argtypes is None:
         lib.dispatch_candidates_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.dispatch_candidates_launch.restype = ctypes.c_int
         lib.dispatch_fused_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
         lib.dispatch_fused_launch.restype = ctypes.c_int
+        lib.dispatch_steer_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        lib.dispatch_steer_launch.restype = ctypes.c_int
     return lib
 
 
@@ -75,8 +91,8 @@ def build() -> Tuple[float, str]:
 
 
 def build_dispatch() -> Tuple[float, str]:
-    """Build and load both dispatch kernels; returns (build seconds,
-    nvcc log)."""
+    """Build and load the three dispatch kernels; returns (build
+    seconds, nvcc log)."""
     _dispatch_lib()
     return _build.build_info(DISPATCH_SOURCE)
 
@@ -268,6 +284,20 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def select_plan(T: int, E: int) -> int:
+    """Rows a block of the rank-counting selection.  A row takes one
+    thread an element (E rounded up to 32, at most 256; past 256 a
+    thread takes several), and rows fill blocks of 256 threads: a
+    decode token's row of E = 128 over 128 threads, a prompt's two rows
+    a block (kernel_steps.py times other plans)."""
+    return max(1, min(T, 256 // min(-(-E // 32) * 32, 256)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(T: int, E: int) -> int:
+    return select_plan(T, E)
+
+
 def dispatch_candidates(
     gate_logits: torch.Tensor, kd: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -285,7 +315,7 @@ def dispatch_candidates(
     with torch.cuda.device(dev):
         err = lib.dispatch_candidates_launch(
             gate_logits.data_ptr(), cand.data_ptr(), vals.data_ptr(),
-            T, E, kd, _stream(dev))
+            T, E, kd, _plan(T, E), _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"dispatch_candidates launch failed: cudaError {err}")
@@ -324,7 +354,7 @@ def dispatch_fused(
         err = lib.dispatch_fused_launch(
             gate_logits.data_ptr(), load.data_ptr(), experts.data_ptr(),
             weights.data_ptr(), steered.data_ptr(), T, E, k, d,
-            float(delta_l), float(gate_slack), _stream(dev))
+            float(delta_l), float(gate_slack), _plan(T, E), _stream(dev))
     if err != 0:
         raise RuntimeError(f"dispatch_fused launch failed: cudaError {err}")
     dispatch_fused.launches += 1
@@ -332,3 +362,79 @@ def dispatch_fused(
 
 
 dispatch_fused.launches = 0
+
+
+@functools.lru_cache(maxsize=1024)
+def _steer_scalars(T: int, f_max: float, delta_l: float):
+    """(mode, low, high, w_high, w_low, floor) of ``dispatch_steer``:
+    mode 0 steers nothing (f_max <= 0), 1 by the f_max quantile, 2 by
+    the margin alone (f_max >= 1), as ``ref.steer_from_candidates``."""
+    floor = float(np.float32(delta_l - 1e-9))
+    if f_max >= 1.0:
+        return 2, 0, 0, 0.0, 0.0, floor
+    if f_max <= 0.0:
+        return 0, 0, 0, 0.0, 0.0, floor
+    return (1, *quantile_plan(T, 1.0 - f_max), floor)
+
+
+def dispatch_steer(
+    cand: torch.Tensor,
+    vals: torch.Tensor,
+    load: torch.Tensor,
+    k: int,
+    *,
+    delta_l: float = 2.0,
+    gate_slack: float = 1.0,
+    f_max: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 2 of the f_max-capped dispatch on the card, in one launch:
+    :func:`repro_torch.kernels.midas_route.ref.steer_from_candidates`
+    over the (T, k+d) candidates ``cand`` (int32 ids in [0, E)) and
+    ``vals`` (float32 logits) of :func:`dispatch_candidates`, with the
+    (E,) float32 ``load``.  Returns (experts (T, k) int32, weights (T, k)
+    float32, steered (T, k) bool): experts and steered bit for bit the
+    plain version's, weights within 1e-6."""
+    if cand.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA dispatch_steer needs tensors on a CUDA device, got "
+            f"{cand.device}; use ref.steer_from_candidates on the CPU"
+        )
+    if cand.dim() != 2 or load.dim() != 1:
+        raise ValueError(f"cand must be (T, k + d) and load (E,), got "
+                         f"{tuple(cand.shape)} and {tuple(load.shape)}")
+    T, kd = cand.shape
+    E = load.shape[0]
+    if k < 1 or kd - k < 1:
+        raise ValueError(f"k and d must be >= 1, got k={k}, d={kd - k}")
+    if not 1 <= E <= MAX_E:
+        raise ValueError(f"E must be in [1, {MAX_E}], got {E}")
+    if kd > min(E, MAX_KD):
+        raise ValueError(f"k + d must be in [1, min(E, {MAX_KD})], got {kd}")
+    dev = cand.device
+    _check("cand", cand, torch.int32, (T, kd), dev)
+    _check("vals", vals, torch.float32, (T, kd), dev)
+    _check("load", load, torch.float32, (E,), dev)
+    experts = torch.empty((T, k), dtype=torch.int32, device=dev)
+    weights = torch.empty((T, k), dtype=torch.float32, device=dev)
+    steered = torch.empty((T, k), dtype=torch.bool, device=dev)
+    if T == 0:
+        return experts, weights, steered
+    scratch = (torch.empty((2, T), dtype=torch.float32, device=dev)
+               if T > STEER_SMEM_T else None)
+    mode, low, high, w_high, w_low, floor = _steer_scalars(
+        T, float(f_max), float(delta_l))
+    lib = _dispatch_lib()
+    with torch.cuda.device(dev):
+        err = lib.dispatch_steer_launch(
+            cand.data_ptr(), vals.data_ptr(), load.data_ptr(),
+            experts.data_ptr(), weights.data_ptr(), steered.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            T, E, k, kd - k, mode, low, high, w_high, w_low,
+            float(delta_l), float(gate_slack), floor, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"dispatch_steer launch failed: cudaError {err}")
+    dispatch_steer.launches += 1
+    return experts, weights, steered
+
+
+dispatch_steer.launches = 0

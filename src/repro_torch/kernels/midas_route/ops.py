@@ -36,10 +36,10 @@ def midas_dispatch(
     for tensors on the card and runs the plain version on the CPU;
     "cuda" on CPU tensors raises.  On the kernel path ``f_max >= 1``
     is one launch of ``dispatch_fused``; ``f_max < 1`` is one launch of
-    ``dispatch_candidates`` followed by the batch-wide quantile and the
-    steering in PyTorch (``ref.steer_from_candidates``, the function
-    the plain path runs too).  With ``d_eff = min(d, E - k) <= 0`` there
-    is nothing to steer and every impl runs plain top-k, as the
+    ``dispatch_candidates`` followed by one of ``dispatch_steer``, the
+    batch-wide quantile and the steering of ``ref.steer_from_candidates``
+    (which the plain path runs).  With ``d_eff = min(d, E - k) <= 0``
+    there is nothing to steer and every impl runs plain top-k, as the
     reference kernel does."""
     impl = resolve_impl(impl, gate_logits.device)
     E = gate_logits.shape[-1]
@@ -48,11 +48,11 @@ def midas_dispatch(
     if impl == "ref" or d_eff <= 0:
         return ref.midas_dispatch(gate_logits, load, k, d, f_max=f_max, **kw)
     logits = gate_logits.float().contiguous()
+    loadf = load.float().contiguous()
     if f_max >= 1.0:
-        return kernel.dispatch_fused(logits, load.float().contiguous(), k,
-                                     d_eff, **kw)
+        return kernel.dispatch_fused(logits, loadf, k, d_eff, **kw)
     cand, vals = kernel.dispatch_candidates(logits, k + d_eff)
-    return ref.steer_from_candidates(cand, vals, load, k, f_max=f_max, **kw)
+    return kernel.dispatch_steer(cand, vals, loadf, k, f_max=f_max, **kw)
 
 
 def route_waves(

@@ -18,6 +18,7 @@ steers in each slot.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -107,28 +108,36 @@ def topk_dispatch(
     return experts, torch.softmax(vals, dim=-1)
 
 
+@functools.lru_cache(maxsize=1024)
+def quantile_plan(n: int, q: float) -> Tuple[int, int, float, float]:
+    """The host-side part of :func:`quantile` for ``n`` values: the
+    ranks ``(low, high)`` of the two order statistics it interpolates,
+    clamped to ``[0, n - 1]``, and their weights ``(w_high, w_low)``.
+    They depend on n and q alone and are float32 scalars on the host,
+    as XLA folds them: the position ``float32(q) * float32(n - 1)`` in
+    float32.  The CUDA ``dispatch_steer`` takes the same plan."""
+    pos = np.float32(q) * np.float32(n - 1)
+    low, high = np.floor(pos), np.ceil(pos)
+    w_high = pos - low
+    w_low = np.float32(1.0) - w_high
+    return (int(min(max(low, 0), n - 1)), int(min(max(high, 0), n - 1)),
+            float(w_high), float(w_low))
+
+
 def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     """``jnp.quantile(x, q)`` of a 1-D float32 tensor (linear
     interpolation), rounded as the reference computes it on the CPU:
-    the position ``float32(q) * float32(n - 1)`` in float32 and the
-    interpolation ``high * w_high + low * w_low`` with one fused
-    multiply-add (``core.xla.fma``).  A last-bit difference here can flip a
+    the position from :func:`quantile_plan` and the interpolation
+    ``high * w_high + low * w_low`` with one fused multiply-add
+    (``core.xla.fma``).  A last-bit difference here can flip a
     steer."""
     # imported here: repro_torch.core imports this module through the
     # routing policies
     from repro_torch.core.xla import fma
 
-    n = x.shape[0]
+    low, high, w_high, w_low = quantile_plan(x.shape[0], q)
     s = torch.sort(x).values
-    # the position and the weights depend on n and q alone: float32
-    # scalars on the host, as XLA folds them
-    pos = np.float32(q) * np.float32(n - 1)
-    low, high = np.floor(pos), np.ceil(pos)
-    w_high = pos - low
-    w_low = np.float32(1.0) - w_high
-    lo = s[int(min(max(low, 0), n - 1))]
-    hi = s[int(min(max(high, 0), n - 1))]
-    return fma(hi, float(w_high), lo * float(w_low))
+    return fma(s[high], w_high, s[low] * w_low)
 
 
 def steer_from_candidates(
@@ -146,14 +155,13 @@ def steer_from_candidates(
     ``cand``/``vals`` are the (T, k+d) gate-ranked candidate ids
     (int32) and logits (float32): slots 0..k-1 are the primaries, k..
     the d alternates.  Slots steer in order, each alternate at most
-    once.  Shared by the plain path (candidates from
-    :func:`top_candidates`) and the two-pass kernel path (candidates
-    from the CUDA ``dispatch_candidates``), which is what makes the two
-    bit-equal.  With ``f_max < 1`` the threshold is the batch-wide
-    quantile of the per-token benefit (:func:`quantile`), so it runs
-    over the whole (T,) vector, between the kernel and the output.
-    Returns (experts (T, k) int32, weights (T, k) float32, steered
-    (T, k) bool)."""
+    once.  The plain path runs it on the candidates of
+    :func:`top_candidates`; its CUDA counterpart is ``dispatch_steer``,
+    which the kernel path runs on those of ``dispatch_candidates``.
+    With ``f_max < 1`` the threshold is the batch-wide quantile of the
+    per-token benefit (:func:`quantile`), so it runs over the whole
+    (T,) vector.  Returns (experts (T, k) int32, weights (T, k)
+    float32, steered (T, k) bool)."""
     T = cand.shape[0]
     d_eff = cand.shape[1] - k
     loadf = load.float()

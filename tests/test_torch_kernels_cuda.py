@@ -32,7 +32,14 @@ chunk of d_inner 8192, d_state 16).
 versions bit for bit on the experts, the candidates and the steered
 flags, with weights within 1e-6, on tests/test_kernels.py's MR shapes,
 ragged T, exact ties and qwen3-moe's serving shapes (E 128, top-8,
-d 2, a 512-token prompt and one decode token).
+d 2, a 512-token prompt and one decode token), and under other
+rows a block than the wrapper's plan; ``dispatch_steer`` the same on
+``ref.steer_from_candidates`` over the same candidates, at every
+f_max (0, below 1 and 1), one token (which never steers below f_max
+1), infinite loads, 1024 and 4096 tokens (the most whose state stays
+in shared memory) and 4097 and 5000 (state in a scratch buffer).  At
+f_max < 1 ``ops.midas_dispatch`` is one launch of each pass and no
+other device kernel but allocator fills (torch.profiler).
 
 Needs a CUDA device and nvcc; skips without them.  The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has
@@ -43,6 +50,7 @@ only PyTorch:
 """
 
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -766,3 +774,158 @@ def test_cuda_dispatch_kernels_reject_what_they_do_not_take():
         kernel.dispatch_fused(logits, load[:31], 2, 2)
     with pytest.raises(ValueError, match="k and d"):
         kernel.dispatch_fused(logits, load, 2, 0)
+
+
+# (T, E, k, d, f_max) for dispatch_steer beyond MR_SHAPES' f_max < 1
+# cases: one decode token, f_max 0 and 1, and state beyond shared memory
+STEER_SHAPES = [shape for shape in MR_SHAPES if shape[4] < 1.0] + [
+    (1, 16, 4, 2, 0.25), (2, 16, 4, 2, 0.5), (300, 16, 4, 2, 0.0),
+    (300, 16, 4, 2, 1.0), (1, 128, 8, 2, 0.5), (1024, 128, 8, 2, 0.25),
+    (4096, 128, 8, 2, 0.25), (4097, 16, 4, 2, 0.75),
+    (5000, 128, 8, 2, 0.25),
+]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_dispatch_steer_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    before = kernel.dispatch_steer.launches
+    calls = steered = 0
+    for (T, E, k, d, f_max), variant in itertools.product(
+            STEER_SHAPES, ("random", "ties", "balanced", "infs")):
+        logits, load = _dispatch_inputs(T, E, T + E + k + d, variant
+                                        if variant != "infs" else "random")
+        if variant == "infs":
+            load[::5] = float("inf")
+        what = str((T, E, k, d, f_max, variant))
+        cand, vals = kernel.dispatch_candidates(logits, k + d)
+        got = kernel.dispatch_steer(cand, vals, load, k, f_max=f_max)
+        want = ref.steer_from_candidates(cand, vals, load, k, f_max=f_max)
+        torch.cuda.synchronize()
+        calls += 1
+        assert torch.equal(got[0], want[0]), what
+        assert torch.equal(got[2], want[2]), what
+        np.testing.assert_allclose(got[1].cpu().numpy(),
+                                   want[1].cpu().numpy(), rtol=0,
+                                   atol=1e-6, err_msg=what)
+        assert got[0].dtype == torch.int32 and got[2].dtype == torch.bool
+        if variant == "balanced" or f_max <= 0.0 or (T == 1
+                                                     and variant != "infs"):
+            assert not got[2].any(), what
+        steered += int(got[2].sum())
+    assert steered > 0
+    assert kernel.dispatch_steer.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows", [1, 3, 4, 8, 32])
+def test_cuda_dispatch_selection_plan_overrides(rows, monkeypatch):
+    """Other rows a block than the wrapper's plan give the same
+    candidates and the same fused dispatch, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    monkeypatch.setattr(kernel, "select_plan", lambda T, E: rows)
+    kernel._plan.cache_clear()
+    before = (kernel.dispatch_candidates.launches,
+              kernel.dispatch_fused.launches)
+    calls = 0
+    for T, E, k, d, _ in MR_SHAPES:
+        if min(-(-E // 32) * 32, 256) * rows > 1024 or rows > T:
+            continue
+        kd = k + min(d, E - k)
+        if kd == k:  # no alternate: plain top-k, no dispatch kernel
+            continue
+        logits, load = _dispatch_inputs(T, E, T + E + k, "ties")
+        ids, vals = kernel.dispatch_candidates(logits, kd)
+        want_ids, want_vals = ref.top_candidates(logits, kd)
+        got = kernel.dispatch_fused(logits, load, k, kd - k)
+        want = ref.midas_dispatch(logits, load, k, kd - k, f_max=1.0)
+        torch.cuda.synchronize()
+        calls += 1
+        what = str((T, E, k, d, rows))
+        assert torch.equal(ids, want_ids) and torch.equal(vals, want_vals), \
+            what
+        assert torch.equal(got[0], want[0]), what
+        assert torch.equal(got[2], want[2]), what
+    kernel._plan.cache_clear()  # the plan is restored after the test
+    assert calls >= 5
+    assert (kernel.dispatch_candidates.launches,
+            kernel.dispatch_fused.launches) == (before[0] + calls,
+                                                before[1] + calls)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("T", [1, 512])
+def test_cuda_fmax_below_one_is_two_launches(T):
+    """ops.midas_dispatch at f_max < 1 on the card: one launch of
+    dispatch_candidates and one of dispatch_steer a call, no
+    dispatch_fused, and on the device no other kernel than at most two
+    allocator fills (no sort, no per-slot op)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.midas_route import kernel, ops
+
+    logits, load = _dispatch_inputs(T, 128, T, "random")
+    ops.midas_dispatch(logits, load, 8, 2, f_max=0.25)  # built, planned
+    torch.cuda.synchronize()
+    counts = (kernel.dispatch_candidates.launches,
+              kernel.dispatch_steer.launches, kernel.dispatch_fused.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        got = ops.midas_dispatch(logits, load, 8, 2, f_max=0.25)
+        torch.cuda.synchronize()
+    assert (kernel.dispatch_candidates.launches,
+            kernel.dispatch_steer.launches,
+            kernel.dispatch_fused.launches) == (counts[0] + 1, counts[1] + 1,
+                                                counts[2])
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [re.search(r"dispatch_[a-z]+_kernel", n) for n in names]
+    assert sorted(m.group(0) for m in ours if m) == [
+        "dispatch_candidates_kernel", "dispatch_steer_kernel"], names
+    others = [n for n in names if "dispatch_" not in n]
+    assert len(others) <= 2, names
+    assert not any("sort" in n.lower() or "Sort" in n for n in others), names
+    want = ref.midas_dispatch(logits, load, 8, 2, f_max=0.25)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_dispatch_steer_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    logits, load = _dispatch_inputs(8, 32, 0, "random")
+    cand, vals = kernel.dispatch_candidates(logits, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.dispatch_steer(cand.cpu(), vals.cpu(), load.cpu(), 4)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.dispatch_steer(cand.long(), vals, load, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.dispatch_steer(cand, vals.double(), load, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.dispatch_steer(cand, vals, load.half(), 4)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.dispatch_steer(cand, vals[:, :5], load, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.dispatch_steer(cand, vals.T.contiguous().T, load, 4)
+    with pytest.raises(ValueError, match="k and d"):
+        kernel.dispatch_steer(cand, vals, load, 6)
+    with pytest.raises(ValueError, match="k and d"):
+        kernel.dispatch_steer(cand, vals, load, 0)
+    with pytest.raises(ValueError, match="k \\+ d"):
+        big = torch.zeros((8, 17), dtype=torch.int32, device="cuda")
+        kernel.dispatch_steer(big, big.float(), load, 4)
+    with pytest.raises(ValueError, match="E must be"):
+        kernel.dispatch_steer(cand, vals, torch.zeros(1025, device="cuda"),
+                              4)
+    with pytest.raises(ValueError, match="cand must be"):
+        kernel.dispatch_steer(cand[0], vals, load, 4)
