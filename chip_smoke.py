@@ -44,6 +44,18 @@ Qwen3-MoE-235B-A22B.  Phases:
 4. the midas run with the plain wave loop in place of the kernel, which
    must give the same timelines, dV and final state bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
+10. (run right after phase 5) the evaluation plane at phase 3's
+   constants and grid, 400 ticks each: ``chbl`` (one ``route_select``
+   launch a wave, 3200), and midas + cache under the ``no_margin``,
+   ``no_pin`` and ``no_bucket`` ablations, the ``aimd``,
+   ``deadband_pid`` and ``static`` controllers and the oscillation
+   guard (one ``route_tick`` launch a tick, 400 each), every one bit for
+   bit its plain run; ``round_robin``, ``rr_request``, ``uniform`` and
+   ``jsq``, which launch no kernel; phase 5's card-vs-CPU run for every
+   new policy and control law, and a 1200-tick guard run whose trips
+   the card and the CPU count alike; E1/E2 (``round_robin`` against
+   ``power_of_d`` on the paper's five workloads at m = 8, cut to 600
+   ticks from the paper's 3000) with the four claims and both ticks/s;
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
    8 requests of a 512-token prompt and 32 greedy decode steps behind a
@@ -994,8 +1006,10 @@ def tensor_bytes(tree) -> int:
     return 0
 
 
-def check_result(np, res, wl, T, m):
-    """The engine's own invariants on a finished run."""
+def check_result(np, res, wl, T, m, counts_eligible=True):
+    """The engine's own invariants on a finished run (``counts_eligible``:
+    the policy reports steer-eligible requests, so steered <= eligible;
+    chbl steers without an eligibility count)."""
     arr = res.arrivals
     for f in ("queue_timeline", "arrivals", "lat_pred"):
         x = getattr(res, f)
@@ -1006,7 +1020,8 @@ def check_result(np, res, wl, T, m):
     routed = int(arr.sum()) + int(res.cache_hits.sum())
     check(routed == offered,
           f"requests lost: {offered} offered, {routed} routed or absorbed")
-    check((res.steered <= res.eligible).all(), "steered > eligible")
+    if counts_eligible:
+        check((res.steered <= res.eligible).all(), "steered > eligible")
     check(((res.d_timeline >= 1) & (res.d_timeline <= 4)).all(),
           "d out of bounds")
     check(np.isfinite(res.pressure).all(), "pressure is not finite")
@@ -1196,6 +1211,168 @@ def phase_small(np, core):
     check(cpu.steered.sum() > 0, "the small run never steered")
     say(f"[5] small run (m=8, N=512, T=400) on the card equals the CPU "
         f"run; steered={cpu.steered.sum():.0f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the evaluation plane -- baselines, control laws, ablations,
+# the guard, E1/E2
+# ---------------------------------------------------------------------------
+
+PLANE_TICKS = 400  # each phase-10 run at phase 3's constants
+PLANE_VARIANTS = (  # midas + cache under each, through route_tick
+    dict(ablate="no_margin"), dict(ablate="no_pin"),
+    dict(ablate="no_bucket"), dict(controller="aimd"),
+    dict(controller="deadband_pid"), dict(controller="static"),
+    dict(guard=True),
+)
+PLANE_BASELINES = ("round_robin", "rr_request", "uniform", "jsq")
+# the small card-vs-CPU runs (phase 5's grid): every new policy bare, and
+# midas + cache under every new control law, an ablation mix, the guard
+PLANE_SMALL = tuple(dict(policy=p) for p in PLANE_BASELINES + ("chbl",)) \
+    + tuple(dict(policy="midas", middleware=("cache",), **kw) for kw in (
+        dict(controller="aimd"), dict(controller="deadband_pid"),
+        dict(controller="static"), dict(ablate="no_margin,no_pin,no_bucket"),
+        dict(guard=True)))
+GUARD_TICKS = 1200  # the small guard run: two slow windows of 600 ticks
+CLAIMS_T = 600  # E1/E2 cut from the paper's T = 3000 for time
+
+
+def plane_grid(wl, T):
+    return wl._replace(keys=wl.keys[:T], mask=wl.mask[:T],
+                       is_write=wl.is_write[:T])
+
+
+def label(kw) -> str:
+    return ",".join(f"{k}={v}" for k, v in kw.items() if k != "middleware")
+
+
+def phase_plane_kernels(torch, np, core, sim, counters, wl, targets):
+    """chbl (route_select once a wave) and midas + cache under every new
+    control law, ablation and the guard (route_tick once a tick), each
+    against its plain run bit for bit.  Returns the launches."""
+    T = PLANE_TICKS
+    wl = plane_grid(wl, T)
+    grid = (wl.keys, wl.mask, wl.is_write)
+    runs_cfg = [(core.SimConfig(policy="chbl", **FULL), "route_select",
+                 T * FULL["n_groups"], (0.15, 500.0))]
+    runs_cfg += [(core.SimConfig(policy="midas", middleware=("cache",),
+                                 cache_mode="lease", **FULL, **kw),
+                  "route_tick", T, targets) for kw in PLANE_VARIANTS]
+    total = dict.fromkeys(counters, 0)
+    for cfg, name, n, tg in runs_cfg:
+        what = "chbl" if cfg.policy == "chbl" else label(
+            {k: getattr(cfg, k) for k in ("ablate", "controller", "guard")
+             if getattr(cfg, k) != getattr(core.SimConfig(), k)})
+        zero_counts(counters)
+        runs = run_both(torch, sim, cfg, grid, tg)
+        counts = read_counts(counters)
+        want = dict.fromkeys(counters, 0)
+        want[name] = n
+        check(counts == want, f"{what}: {counts} launches, expected {want}")
+        check_runs_equal(torch, runs["cuda"][0], runs["ref"][0], what)
+        (final, outs), secs = runs["cuda"]
+        res = sim._to_result(cfg, outs, None)
+        check_result(np, res, wl, T, cfg.m,
+                     counts_eligible=cfg.policy != "chbl")
+        extra = ""
+        if cfg.guard:
+            gi = final.ctrl.inner
+            extra = (f"; guard: {int(gi.frozen)} windows frozen at the "
+                     f"end, {int(gi.flips)} d flips in the open slow "
+                     f"window (T_slow is {cfg.t_slow_ticks} ticks: the "
+                     f"breaker is consulted only at a slow tick)")
+        say(f"[10] {what}: {n} {name} launches, no other kernel; every "
+            f"per-tick output and the final state bit-for-bit its plain "
+            f"run; {T / secs:.1f} ticks/s (plain {T / runs['ref'][1]:.1f});"
+            f" steered={res.steered.sum():.0f} "
+            f"mean_queue={res.mean_queue():.6f}{extra}")
+        for k in total:
+            total[k] += counts[k]
+    for policy in PLANE_BASELINES:
+        cfg = core.SimConfig(policy=policy, **FULL)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = core.simulate(cfg, wl, do_warmup=False, device="cuda")
+        secs = time.perf_counter() - t0
+        counts = read_counts(counters)
+        check(not any(counts.values()), f"{policy} launched {counts}")
+        check_result(np, res, wl, T, cfg.m)
+        say(f"[10] {policy}: no kernel launched; {T / secs:.1f} ticks/s; "
+            f"mean_queue={res.mean_queue():.6f} "
+            f"worst_case_queue={res.worst_case_queue():.6f} "
+            f"dispersion={res.dispersion():.6f}")
+    return total
+
+
+def phase_plane_small(np, core, sim):
+    """Phase 5's card-vs-CPU run for every new policy and control law,
+    and a guard run long enough to trip (two slow windows), its trips
+    counted window by window on both devices."""
+    wl = core.make_workload("bursty", T=400, m=8, seed=3, N=512,
+                            device="cpu")
+    for kw in PLANE_SMALL:
+        cfg = core.SimConfig(m=8, N=512, **kw)
+        cpu = core.simulate(cfg, wl, do_warmup=False, device="cpu")
+        gpu = core.simulate(cfg, wl, do_warmup=False, device="cuda")
+        for f in FIELDS:
+            a, b = getattr(cpu, f), getattr(gpu, f)
+            if f == "pressure":
+                check(np.allclose(a, b, rtol=1e-6, atol=0),
+                      f"{label(kw)}: pressure differs")
+            else:
+                check(np.array_equal(a, b),
+                      f"{label(kw)}: card vs CPU: {f} differs")
+        say(f"[10] small {label(kw)}: the card equals the CPU; "
+            f"steered={cpu.steered.sum():.0f}")
+    cfg = core.SimConfig(m=8, N=512, policy="midas", middleware=("cache",),
+                         guard=True)
+    wl = core.make_workload("bursty", T=GUARD_TICKS, m=8, seed=3, N=512,
+                            device="cpu")
+    targets = sim.warmup(cfg, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = sim.init_state(cfg, *targets, device=dev)
+        S, trips, d = cfg.t_slow_ticks, 0, []
+        for lo in range(0, GUARD_TICKS, S):
+            st, o = sim.run_ticks(
+                cfg, st, *(x[lo:lo + S].to(dev)
+                           for x in (wl.keys, wl.mask, wl.is_write)),
+                t0=lo)
+            trips += int(st.ctrl.inner.frozen) == \
+                core.controllers.HOLD_WINDOWS
+            d.append(o.d.cpu().numpy())
+        out[dev] = (trips, np.concatenate(d))
+    check(out["cpu"][0] == out["cuda"][0]
+          and np.array_equal(out["cpu"][1], out["cuda"][1]),
+          "guard: card vs CPU differ")
+    say(f"[10] small guard run (m=8, N=512, bursty, T={GUARD_TICKS}, "
+        f"warmup targets): {out['cuda'][0]} trips on the card and on the "
+        f"CPU, equal d timelines")
+
+
+def phase_claims(core, counters):
+    """E1/E2 at the paper's m = 8 on its five workloads, cut to
+    CLAIMS_T ticks: round_robin (no kernel) against power_of_d
+    (route_select once a wave).  Returns the launches."""
+    sys.path.insert(0, str(ROOT / "benchmarks_torch"))
+    import paper_claims
+
+    zero_counts(counters)
+    claims = paper_claims.run(T=CLAIMS_T, device="cuda",
+                              out=ROOT / "build" / "paper_claims_smoke",
+                              say=lambda line: say(f"[10] {line}"))
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_select"] = (len(paper_claims.PAPER_WORKLOADS) * CLAIMS_T
+                            * core.SimConfig().n_groups)
+    check(counts == want, f"E1/E2: {counts} launches, expected {want}")
+    tps = claims["ticks_per_s"]
+    say(f"[10] E1/E2 at T={CLAIMS_T} (cut from 3000): "
+        f"{want['route_select']} route_select launches (power_of_d), none "
+        f"for round_robin; ticks/s round_robin {tps['round_robin']:.1f}, "
+        f"power_of_d {tps['power_of_d']:.1f}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1597,6 +1774,12 @@ def main() -> int:
         launches = phase_power_of_d(torch, np, core, sim, counters, wl)
         phase_parity(torch, np, core, sim, cfg, wl, res, targets)
         phase_small(np, core)
+        t10 = time.perf_counter()
+        plane = phase_plane_kernels(torch, np, core, sim, counters, wl,
+                                    targets)
+        phase_plane_small(np, core, sim)
+        claims_launches = phase_claims(core, counters)
+        say(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
         model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
             torch, np, serving, counters, model, tag=6,
@@ -1640,10 +1823,12 @@ def main() -> int:
     say(json.dumps({"kernels": [
         kernel_entry("route_select", csrc.format("midas_route",
                                                  "route_select"),
-                     REPLACES, launches, max_err, main_row),
+                     REPLACES, launches + plane["route_select"]
+                     + claims_launches["route_select"], max_err, main_row),
         kernel_entry("route_tick", csrc.format("midas_route",
                                                "route_select"),
-                     TICK_REPLACES, tick_launches, 0.0, tick_row),
+                     TICK_REPLACES, tick_launches + plane["route_tick"],
+                     0.0, tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",

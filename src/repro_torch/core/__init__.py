@@ -3,9 +3,10 @@
 # cache with leases and adaptive TTLs (middleware), and the
 # self-stabilizing control loop (controllers), driven by the
 # queue-network simulator (sim).  See repro_torch/__init__.py.
-from repro_torch.core import (cache, controllers,  # noqa: F401
+from repro_torch.core import (cache, control, controllers,  # noqa: F401
                               hashring, middleware, policies, prng,
                               registry, sim, telemetry, workloads)
 from repro_torch.core.sim import (SimConfig, SimResult,  # noqa: F401
                                   simulate)
-from repro_torch.core.workloads import make_workload  # noqa: F401
+from repro_torch.core.workloads import (WORKLOADS,  # noqa: F401
+                                        make_workload)

@@ -10,22 +10,23 @@ the cache's slow-loop TTL retune through ``ttl_scale``).
 Protocol: ``Controller.init(cfg, targets, device) -> ControlState``;
 ``fast(state, signals) -> (state, Knobs)`` on the fast cadence;
 ``slow(state, signals) -> (state, Knobs)`` on T_slow (default no-op);
-``view(state) -> Knobs`` is what consumers see each tick.  Knobs are
-0-d device tensors, so a controller step never reads back to the host.
-
-The ablation decorators and the oscillation guard are not ported yet:
-:func:`wrap_ablations` and :func:`wrap_guard` accept only their
-identity settings.
+``view(state) -> Knobs`` is what consumers see each tick -- the
+ablation decorators (:func:`wrap_ablations`) override it to mask out a
+stability mechanism while leaving the controller's dynamics untouched,
+which is what the §IV-E ablation study measures.  Knobs are 0-d device
+tensors, so a controller step never reads back to the host.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple, Type
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 
 import numpy as np
 import torch
 
 from repro_torch.core import registry as registry_lib
+from repro_torch.core import telemetry
+from repro_torch.core.xla import reduce_sum
 from repro_torch.kernels.common import resolve_device
 
 # Paper cadences and shared control constants (Algorithm 1 lines 1-20).
@@ -141,6 +142,44 @@ class Signals(NamedTuple):
     member: torch.Tensor  # (m,) float32 detected membership (1=live)
 
 
+def make_signals(
+    B=0.0,
+    p99=0.0,
+    L_hat=None,
+    views_p=None,
+    write_mix=0.0,
+    jitter=0.0,
+    rtt_ms: float = 2.0,
+    avail=1.0,
+    member=None,
+    device=None,
+) -> Signals:
+    """Signals bundle with neutral fillers -- unit tests and the legacy
+    ``control.fast_update`` shim drive controllers without an engine.
+    Scalars become float32 tensors on ``device`` (the card when None,
+    else the device of ``L_hat`` when given)."""
+    if L_hat is not None:
+        device = L_hat.device
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    L = torch.zeros((1,), dtype=torch.float32, device=device) \
+        if L_hat is None else L_hat
+    return Signals(
+        B=f32(B),
+        p99=f32(p99),
+        L_hat=L,
+        views_p=L[None, :] if views_p is None else views_p,
+        write_mix=f32(write_mix),
+        jitter=f32(jitter),
+        rtt_ms=rtt_ms,
+        avail=f32(avail),
+        member=torch.ones_like(L) if member is None else member,
+    )
+
+
 class ControlState(NamedTuple):
     """Carried control-plane state: knobs + targets + controller-owned
     ``inner`` state (counters, integrators, ...)."""
@@ -173,6 +212,34 @@ def warmup_targets(
     b_tgt = float(np.median(B_series) + 0.05)
     p99_tgt = float(max(p99_warm * 1.25, rtt_ms + 2.0))
     return b_tgt, p99_tgt
+
+
+def consensus_view(
+    views_p: torch.Tensor, reducer: str = "mean"
+) -> torch.Tensor:
+    """Collapse (P, m) per-proxy telemetry views into the single view the
+    one control loop consumes (fleet mode): ``mean``, ``median`` (robust
+    to one lagged proxy) or ``max`` (conservative)."""
+    return telemetry.reduce_views(views_p, reducer)
+
+
+# ---------------------------------------------------------------------------
+# Lyapunov stability helpers (paper §IV-E, eq. 2)
+# ---------------------------------------------------------------------------
+
+
+def lyapunov_delta_v(
+    L: torch.Tensor, p: torch.Tensor, j: torch.Tensor
+) -> torch.Tensor:
+    """ΔV for moving one request p→j:  2(L̂_j − L̂_p) + 2  (paper eq. 2)."""
+    return 2.0 * (L[j] - L[p]) + 2.0
+
+
+def lyapunov_potential(L: torch.Tensor) -> torch.Tensor:
+    """V(L̂) = Σ_i (L̂_i − L̄)² of an (m,) view, with the sums in XLA's
+    CPU order and the mean as jnp takes it (the sum times 1/m)."""
+    c = L - reduce_sum(L) * float(np.float32(1.0 / L.shape[0]))
+    return reduce_sum(c * c)
 
 
 class Controller:
@@ -250,21 +317,120 @@ def parse_ablations(flags: str) -> Tuple[str, ...]:
     return toks
 
 
+class Ablated(Controller):
+    """Decorator removing §IV-E stability mechanisms from the *emitted*
+    knob view while leaving the wrapped controller's dynamics untouched
+    -- the ablation study measures what breaks without a guard, not a
+    differently-tuned controller.
+
+      no_margin -- steer on any lighter candidate (Δ_L = 0, Δ_t = −1e9)
+      no_pin    -- re-evaluate every request (C = 0)
+      no_bucket -- uncapped steering (f_max = 1)
+      no_fault_signal -- the controller never sees availability
+                  degradation (Signals.avail/member forced healthy)
+    """
+
+    def __init__(self, inner: Controller, flags: str):
+        self.inner = inner
+        self.flags = parse_ablations(flags)
+        self.name = f"{inner.name}[{','.join(self.flags)}]"
+
+    def init_inner(self, cfg, device=None) -> Any:
+        return self.inner.init_inner(cfg, device)
+
+    def init(
+        self, cfg, targets: Tuple[float, float], device=None
+    ) -> ControlState:
+        return self.inner.init(cfg, targets, device)
+
+    def _mask_signals(self, sig: Signals) -> Signals:
+        if "no_fault_signal" in self.flags:
+            sig = sig._replace(avail=torch.ones_like(sig.avail),
+                               member=torch.ones_like(sig.member))
+        return sig
+
+    def fast(self, state, sig):
+        state, _ = self.inner.fast(state, self._mask_signals(sig))
+        return state, self.view(state)
+
+    def slow(self, state, sig):
+        state, _ = self.inner.slow(state, self._mask_signals(sig))
+        return state, self.view(state)
+
+    def view(self, state: ControlState) -> Knobs:
+        k = self.inner.view(state)
+        if "no_margin" in self.flags:
+            k = k._replace(delta_l=torch.zeros_like(k.delta_l),
+                           delta_t=torch.full_like(k.delta_t, -1e9))
+        if "no_pin" in self.flags:
+            k = k._replace(pin_ms=torch.zeros_like(k.pin_ms))
+        if "no_bucket" in self.flags:
+            k = k._replace(f_max=torch.ones_like(k.f_max))
+        return k
+
+
 def wrap_ablations(ctrl: Controller, flags: str) -> Controller:
-    """``ctrl`` unchanged for an empty spec; the ablation decorators are
-    not ported yet (ROADMAP §1 item 14)."""
-    if parse_ablations(flags):
-        raise NotImplementedError(
-            "ablations are not ported yet (ROADMAP §1 item 14)"
-        )
-    return ctrl
+    """``ctrl`` unchanged for an empty spec, else the :class:`Ablated`
+    decorator applying every named mechanism removal."""
+    return Ablated(ctrl, flags) if parse_ablations(flags) else ctrl
 
 
-def wrap_guard(ctrl: Controller, guard: bool) -> Controller:
-    """``ctrl`` unchanged without the guard; the oscillation guard is
-    not ported yet (ROADMAP §1 item 14)."""
-    if guard:
-        raise NotImplementedError(
-            "the oscillation guard is not ported yet (ROADMAP §1 item 14)"
-        )
-    return ctrl
+# ---------------------------------------------------------------------------
+# Host-side trajectory stability metrics
+# ---------------------------------------------------------------------------
+
+
+def trajectory_stats(
+    d: np.ndarray,
+    delta_l: np.ndarray,
+    f_max: np.ndarray,
+    pressure: np.ndarray,
+    dt_ms: float,
+) -> Dict[str, float]:
+    """Stability metrics of one run's knob trajectories (host-side).
+
+    * ``oscillation_per_min`` -- d-knob flips per minute (the paper's
+      oscillation measure);
+    * ``settle_ms`` -- time from the LAST pressure onset (final rising
+      edge of P) to the last knob change at or after it; 0.0 if
+      pressure never rose or knobs never moved after that onset;
+    * ``knob_churn`` -- mean per-tick |Δknob| normalized by each knob's
+      spec range, summed over (d, delta_l, f_max);
+    * ``settled`` -- 1.0 when the final 10% of the horizon is
+      change-free.
+    """
+    d = np.asarray(d, np.float64)
+    dl = np.asarray(delta_l, np.float64)
+    fm = np.asarray(f_max, np.float64)
+    pr = np.asarray(pressure, np.float64)
+    T = d.shape[0]
+    if T < 2:
+        return {"oscillation_per_min": 0.0, "settle_ms": 0.0,
+                "knob_churn": 0.0, "settled": 1.0}
+    minutes = T * dt_ms / 60_000.0
+    flips = int(np.sum(np.diff(d) != 0))
+    change = (
+        (np.diff(d) != 0) | (np.diff(dl) != 0) | (np.diff(fm) != 0)
+    )
+    rising = np.flatnonzero((pr[1:] > 0.0) & (pr[:-1] <= 0.0)) + 1
+    if pr[0] > 0.0:
+        rising = np.concatenate([[0], rising])
+    if rising.size == 0 or not change.any():
+        settle_ms = 0.0
+    else:
+        onset = int(rising[-1])
+        chg = np.flatnonzero(change) + 1  # tick indices of knob changes
+        after = chg[chg >= onset]
+        settle_ms = float(after[-1] - onset) * dt_ms if after.size else 0.0
+    churn = 0.0
+    for series, name in ((d, "d"), (dl, "delta_l"), (fm, "f_max")):
+        s = spec(name)
+        rng = (s.hi - s.lo) if np.isfinite(s.hi) else 1.0
+        churn += float(np.mean(np.abs(np.diff(series))) / max(rng, EPS))
+    tail = change[-max(T // 10, 1):]
+    return {
+        "oscillation_per_min": flips / minutes,
+        "settle_ms": settle_ms,
+        "knob_churn": churn,
+        "settled": float(not tail.any()),
+    }

@@ -1,10 +1,10 @@
 """Pluggable routing-policy registry (PyTorch port).
 
-``SimConfig.policy`` resolves through this registry.  The port carries
-``midas`` (the main path), ``power_of_d`` and ``hash`` (the warmup
-pass); ``chbl``, ``jsq``, ``round_robin``, ``rr_request`` and
-``uniform`` come later (ROADMAP §1 item 5).  Unknown names raise a
-``ValueError`` listing what is registered.
+``SimConfig.policy`` resolves through this registry: ``midas`` (the
+main path), ``hash`` (the warmup pass), and the paper's baselines
+``power_of_d``, ``round_robin``, ``rr_request``, ``uniform``, ``jsq``
+and ``chbl``.  Unknown names raise a ``ValueError`` listing what is
+registered.
 """
 
 from repro_torch.core.policies.base import (
@@ -18,15 +18,20 @@ from repro_torch.core.policies.base import (
     register,
     sample_candidates,
     sample_ranks,
+    slice_draws,
     steering_dv,
     unregister,
 )
 
 # Built-in policies self-register on import.
 from repro_torch.core.policies import (  # noqa: F401, E402
+    bounded_load,
+    jsq,
     midas,
     power_of_d,
+    round_robin,
     static_hash,
+    uniform,
 )
 
 __all__ = [
@@ -40,6 +45,7 @@ __all__ = [
     "register",
     "sample_candidates",
     "sample_ranks",
+    "slice_draws",
     "steering_dv",
     "unregister",
 ]

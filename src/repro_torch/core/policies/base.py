@@ -8,16 +8,20 @@ the simulator resolves ``cfg.policy`` through the registry.
 Protocol
 --------
 ``Policy.init(cfg, ring, device) -> state`` builds the policy's carried
-state (``()`` for stateless policies).  ``Policy.draws(keys, shape)``
-makes the policy's random draws for many waves at once: ``keys`` are
-per-wave PRNG keys ``(..., 2)`` and the result is a :class:`WaveDraws`
-of ``(..., *shape)`` tensors (or ``None`` for a policy that draws
-nothing).  The engine calls it ONCE for the whole horizon before the
-tick loop, with exactly the keys the reference engine hands each wave,
-so the draws are bit-for-bit the reference's and no random bits are
-made inside a tick.
+state (``()`` for stateless policies).  ``Policy.wave_draws(keys, cfg,
+Rg)`` makes the policy's random draws for many waves of ``Rg``
+requests at once: ``keys`` are per-wave PRNG keys ``(..., 2)`` and the
+result is a NamedTuple of ``(..., ...)`` tensors led by the keys' axes
+(or ``None`` for a policy that draws nothing); each policy sizes its
+own draws from ``cfg``.  The default is ``draws(keys, (Rg, d_max))``,
+a :class:`WaveDraws` over each request's feasible slots (midas,
+power_of_d).  The engine calls it ONCE for the whole horizon before
+the tick loop, with exactly the keys the reference engine hands each
+wave, so the draws are bit-for-bit the reference's and no random bits
+are made inside a tick.
 ``Policy.route(state, ctx) -> (state, assign, RouteStats)`` routes one
-wave; ``ctx.draws`` holds that wave's slice of the draws.  ``assign``
+wave; ``ctx.draws`` holds that wave's slice of the draws (each field
+indexed by the leading axes, :func:`slice_draws`).  ``assign``
 is ``(R,)`` int32 server ids (-1 for masked-out slots).
 ``Policy.route_tick(state, ctx) -> (state, TickRoute) | None`` routes a
 whole tick's waves in one kernel launch where the policy has such a
@@ -48,7 +52,7 @@ class RouteContext(NamedTuple):
     p50_view: torch.Tensor  # (m,) float32 stale EWMA p50 (ms)
     knobs: Knobs  # controller-emitted knob bundle
     now_ms: torch.Tensor  # () float32 tick clock
-    draws: Optional["WaveDraws"]  # this wave's slice of the draws
+    draws: Optional[tuple]  # this wave's slice of the policy's draws
     m: int  # number of servers
     fixed_d: int  # d for non-adaptive power-of-d
     # resolved routing implementation: "ref" (plain PyTorch) or "cuda"
@@ -144,8 +148,16 @@ class Policy:
     def draws(
         self, keys: torch.Tensor, shape: Tuple[int, ...]
     ) -> Optional[WaveDraws]:
-        """Random draws for a batch of waves (default: none)."""
+        """Per-slot random draws ``(..., *shape)`` for a batch of waves
+        (default: none)."""
         return None
+
+    def wave_draws(
+        self, keys: torch.Tensor, cfg, Rg: int
+    ) -> Optional[tuple]:
+        """The draws of waves of ``Rg`` requests, sized from ``cfg``
+        (default: :meth:`draws` over the ``d_max`` feasible slots)."""
+        return self.draws(keys, (Rg, cfg.d_max))
 
     def route(
         self, state: Any, ctx: RouteContext
@@ -160,6 +172,12 @@ class Policy:
         their (G, Rg, d_max) draws, and in ``L_view`` the stale view
         without this tick's sends.  Default: None, no such kernel."""
         return None
+
+
+def slice_draws(draws: Optional[tuple], i) -> Optional[tuple]:
+    """``draws`` (any NamedTuple of tensors, or None) indexed by ``i``
+    on the leading axes of every field."""
+    return None if draws is None else type(draws)(*(x[i] for x in draws))
 
 
 REGISTRY = registry_lib.Registry("policy")

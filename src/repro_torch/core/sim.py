@@ -22,9 +22,8 @@ bit-for-bit the reference's.
 ``simulate`` runs one config and returns a :class:`SimResult` with the
 paper metrics.  The engine runs on the CUDA device unless the caller
 passes ``device="cpu"``.  Configurations that need a part not ported
-yet (fleet routing, faults, the guard, ablations, the unrolled
-reference engine) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+yet (fleet routing, faults, the unrolled reference engine) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -46,12 +45,12 @@ from repro_torch.core.policies.base import (
     RouteContext,
     RouteStats,
     TickRoute,
-    WaveDraws,
+    slice_draws,
 )
 from repro_torch.core.workloads import Workload, make_workload
 from repro_torch.kernels import common as kernels_common
 
-CONSENSUS_REDUCERS = ("mean", "median", "max")
+CONSENSUS_REDUCERS = telemetry.CONSENSUS_REDUCERS
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -83,7 +82,7 @@ class SimConfig:
     controller: str = "hysteresis"
     consensus: str = "mean"  # mean | median | max (fleet view reducer)
     ablate: str = ""  # comma-joined subset of controllers.ABLATIONS
-    guard: bool = False  # oscillation guard (unported)
+    guard: bool = False  # oscillation guard (controllers.guard)
     faults: Optional[Tuple] = None  # fault schedule (unported)
     unroll_waves: bool = False  # unrolled reference engine (unported)
     # wave-routing implementation: "auto" is the CUDA kernel on the card
@@ -112,14 +111,11 @@ class SimConfig:
         registry_lib.validate_choice(
             self.consensus, "consensus reducer", CONSENSUS_REDUCERS
         )
-        if ctrl_lib.parse_ablations(self.ablate):
-            raise _unported("ablations", 14)
+        ctrl_lib.parse_ablations(self.ablate)  # raises on unknown tokens
         if not isinstance(self.guard, bool):
             raise ValueError(
                 f"SimConfig.guard must be a bool, got {self.guard!r}"
             )
-        if self.guard:
-            raise _unported("the oscillation guard", 14)
         registry_lib.validate_choice(
             self.cache_mode, "cache_mode", cache_lib.MODES
         )
@@ -272,7 +268,7 @@ class Horizon(NamedTuple):
     keysg: torch.Tensor  # (T, G, R/G) int64 keys per wave
     feasg: torch.Tensor  # (T, G, R/G, d_max) int32 feasible sets
     rng: torch.Tensor  # (T, 2) state key after each tick's split
-    draws: Optional[WaveDraws]  # (T, G, R/G, d_max) policy draws
+    draws: Optional[tuple]  # (T, G, ...) the policy's draws
     jitter: torch.Tensor  # (T,) float32 fast-loop jitter in [-1, 1)
 
 
@@ -324,7 +320,7 @@ def _scan_inputs(
         keysg=keysg,
         feasg=hashring.feasible_set(ring, keysg, cfg.d_max),
         rng=rng,
-        draws=policy.draws(waves, (Rg, cfg.d_max)),
+        draws=policy.wave_draws(waves, cfg, Rg),
         jitter=prng.uniform(prng.fold_in(rng, 3), (), -1.0, 1.0),
     )
 
@@ -346,7 +342,7 @@ def _route_waves(
     keysg: torch.Tensor,
     maskg: torch.Tensor,
     feasg: torch.Tensor,
-    draws: Optional[WaveDraws],
+    draws: Optional[tuple],
     impl: str,
     consts: _Consts,
 ):
@@ -385,9 +381,7 @@ def _route_waves(
             p50_view=state.p50_hat,
             knobs=knobs,
             now_ms=now_ms,
-            draws=None if draws is None else WaveDraws(
-                *(x[g] for x in draws)
-            ),
+            draws=slice_draws(draws, g),
             m=cfg.m,
             fixed_d=cfg.fixed_d,
             route_impl=impl,
@@ -484,9 +478,7 @@ def _tick(
     state = state._replace(mw=tuple(mw_states))
 
     # --- route in waves --------------------------------------------------
-    draws = None if hz.draws is None else WaveDraws(
-        *(x[t] for x in hz.draws)
-    )
+    draws = slice_draws(hz.draws, t)
     ps, routed = _route_waves(
         cfg, policy, state, controller.view(state.ctrl), now_ms,
         hz.keysg[t], _wave_split(cfg, mask), hz.feasg[t], draws, impl,

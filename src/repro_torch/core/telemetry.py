@@ -20,7 +20,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.xla import div, fma
+from repro_torch.core.xla import div, fma, reduce_sum
 from repro_torch.kernels.common import resolve_device
 
 
@@ -138,15 +138,49 @@ def sketch_quantiles(
 
 
 def _std_mean(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Population std and mean in float32, in ``jnp.std``'s order:
-    mean = sum/n, then sqrt(sum((x - mean)**2) / n)."""
-    n = x.shape[-1]
-    mu = div(x.sum(-1), n)
-    c = x - mu[..., None]
-    return torch.sqrt(div((c * c).sum(-1), n)), mu
+    """Population std and mean of an (m,) float32 view, rounded as the
+    reference engine computes them on the CPU: mean = sum · (1/m), then
+    sqrt(sum((x - mean)²) · (1/m)), the sums in XLA's order and each
+    square fused into its add (``xla.reduce_sum``).  The square root is
+    taken in float64 and rounded once, so it is correctly rounded as
+    XLA's is (PyTorch's float32 ``sqrt`` on the CPU is not)."""
+    inv = float(np.float32(1.0 / x.shape[0]))
+    mu = reduce_sum(x) * inv
+    var = reduce_sum(x - mu, squares=True) * inv
+    return torch.sqrt(var.double()).float(), mu
 
 
 def imbalance(L_hat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """B(t) = std(L̂)/(mean(L̂)+ε)  -- the paper's smoothed imbalance."""
     sd, mu = _std_mean(L_hat)
     return sd / (mu + eps)
+
+
+CONSENSUS_REDUCERS = ("mean", "median", "max")
+
+
+def reduce_views(views_p: torch.Tensor, reducer: str = "mean") -> torch.Tensor:
+    """Collapse a (P, m) stack of per-proxy views along the proxy axis,
+    as the reference computes it on the CPU: ``mean`` sums the P rows
+    in order and multiplies by 1/P; ``median`` interpolates the two
+    middle order statistics with one fused multiply-add (jnp.median's
+    linear rule); ``max`` is exact."""
+    P = views_p.shape[0]
+    if reducer == "mean":
+        rows = views_p.unbind(0)
+        total = rows[0]
+        for r in rows[1:]:
+            total = total + r
+        return total * float(np.float32(1.0 / P))
+    if reducer == "median":
+        pos = np.float32(0.5) * np.float32(P - 1)
+        lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+        w_hi = float(pos - np.float32(lo))
+        s = torch.sort(views_p, dim=0).values
+        return fma(s[hi], w_hi, s[lo] * float(np.float32(1.0) - w_hi))
+    if reducer == "max":
+        return views_p.amax(0)
+    raise ValueError(
+        f"unknown consensus reducer {reducer!r}; available: "
+        f"{', '.join(CONSENSUS_REDUCERS)}"
+    )

@@ -2,7 +2,7 @@
 
 ``make_workload(name, ...)`` resolves through the registry; unknown
 names raise a ``ValueError`` listing every alternative.  The port
-carries ``light`` and ``bursty`` (:mod:`.fig2`).
+carries the paper's seven Fig. 2 generators (:mod:`.fig2`).
 """
 
 from repro_torch.core.workloads.base import (
@@ -22,8 +22,10 @@ from repro_torch.core.workloads.base import (
 
 # Built-in generators self-register on import.
 from repro_torch.core.workloads import fig2  # noqa: F401, E402
+from repro_torch.core.workloads.fig2 import WORKLOADS  # noqa: E402
 
 __all__ = [
+    "WORKLOADS",
     "Workload",
     "WorkloadParams",
     "WorkloadSpec",

@@ -6,8 +6,10 @@ a namespace of ``N`` objects; the key→server map comes from the
 consistent-hash ring, so key skew creates server hotspots.
 
 Random draws: every draw but one goes through the port's threefry
-(:mod:`repro_torch.core.prng`), so keys, write flags and burst phases
-equal the reference's bit for bit.  The exception is the per-tick
+(:mod:`repro_torch.core.prng`), and the Zipf tables and rate curves are
+rounded as the reference rounds them on the CPU
+(:mod:`repro_torch.core.xla`), so keys, write flags and burst phases
+equal the reference's bit for bit at a given mask.  The exception is the per-tick
 arrival count: the reference draws it with ``jax.random.poisson``,
 which is not reproduced; here it is ``torch.poisson`` with a
 ``torch.Generator`` seeded from the workload seed, on the CPU, so the
@@ -22,11 +24,12 @@ Rates are fractions of aggregate service capacity
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Tuple, Type
 
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import prng, xla
 from repro_torch.core import registry as registry_lib
 from repro_torch.core.hashring import hash2
 from repro_torch.kernels.common import resolve_device
@@ -142,14 +145,21 @@ def make_workload(
 # ---------------------------------------------------------------------------
 
 
-def zipf_cdf(N: int, alpha: float, device=None) -> torch.Tensor:
-    """Zipf(alpha) CDF over N ranks in float32, computed on the CPU so
-    the keys drawn from it do not depend on the device, then moved to
-    ``device`` (the card when None)."""
-    device = resolve_device(device)
+@functools.lru_cache(maxsize=64)
+def _zipf_cdf(N: int, alpha: float) -> torch.Tensor:
     ranks = torch.arange(1, N + 1, dtype=torch.float32)
-    w = ranks ** (-alpha)
-    return (torch.cumsum(w, 0) / w.sum()).to(device)
+    w = xla.libm("powf", ranks, -alpha)
+    return xla.cumsum(w) / xla.reduce_sum(w)
+
+
+def zipf_cdf(N: int, alpha: float, device=None) -> torch.Tensor:
+    """Zipf(alpha) CDF over N ranks in float32, computed on the CPU as
+    the reference computes it there (the C library's ``powf``, XLA's
+    orders of the cumulative sum and the sum; bit for bit wherever
+    :func:`xla.reduce_sum` is, e.g. N <= 64 or N = 512, 4096), so the
+    keys drawn from it do not depend on the device; then moved to
+    ``device`` (the card when None)."""
+    return _zipf_cdf(N, float(alpha)).to(resolve_device(device))
 
 
 def sample_keys(key, shape, N: int, alpha: float, perm_salt: int = 3):

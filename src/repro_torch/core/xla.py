@@ -8,6 +8,16 @@ differently from plain PyTorch:
   ``fma(1-a, x, a*y)``), rounding once.  :func:`fma` does the same.
 * **Division by a scalar.**  XLA divides; PyTorch multiplies by a
   reciprocal in some scalar cases.  :func:`div` always divides.
+* **The order of a sum.**  XLA's CPU backend sums a float32 vector of
+  up to 32 elements left to right, and a longer one in blocks; a
+  cumulative sum is a two-level scan over blocks of 16.  PyTorch sums
+  in other orders (on the CPU in vector lanes, a cumulative sum in
+  float64).  :func:`reduce_sum` and :func:`cumsum` take XLA's orders.
+* **The C library's float32 math.**  Outside a fused computation XLA's
+  CPU backend calls the C library's ``sinf`` and ``powf``, which are
+  not correctly rounded and differ from ``torch.sin`` and ``torch.pow``
+  in the last bit for a few percent of arguments.  :func:`libm` calls
+  the same functions on the host.
 * **Scatter with dropped rows and repeated indices.**  ``x.at[i].set(v,
   mode="drop")`` skips out-of-bounds rows (the engine's sentinel ``N``)
   and, on the CPU, keeps the LAST write when an index repeats.  PyTorch
@@ -21,6 +31,11 @@ functional copy per wave would move more bytes than the whole tick.
 """
 
 from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
+import operator
 
 import numpy as np
 import torch
@@ -54,6 +69,84 @@ def div(a, b) -> torch.Tensor:
         b = torch.full((), float(np.float32(b)), dtype=a.dtype,
                        device=a.device)
     return a / b
+
+
+def _blocks(x: torch.Tensor, b: int) -> torch.Tensor:
+    """1-D ``x`` as rows of ``b``, the last padded with zeros."""
+    k = -(-x.shape[0] // b)
+    if k * b > x.shape[0]:  # x + 0.0 == x: the pad changes no sum
+        x = torch.cat([x, x.new_zeros(k * b - x.shape[0])])
+    return x.reshape(k, b)
+
+
+def _fold(parts, squares: bool) -> torch.Tensor:
+    """``parts`` summed left to right; with ``squares``, the sum of
+    their squares, each square fused into its add."""
+    if not squares:
+        return functools.reduce(operator.add, parts)
+    acc = parts[0] * parts[0]
+    for p in parts[1:]:
+        acc = fma(p, p, acc)
+    return acc
+
+
+def reduce_sum(x: torch.Tensor, squares: bool = False) -> torch.Tensor:
+    """``jnp.sum`` of a 1-D float32 tensor in XLA's CPU order: up to 32
+    elements left to right; more as ``k = ceil(n / 32)`` blocks of
+    ``ceil(n / k)``, each summed left to right, and then the k block
+    sums the same way.  Found bit for bit for every n up to 64 and
+    every multiple of 32 tried (up to 65536); other lengths above 64
+    XLA splits otherwise, and there this is only close.  With
+    ``squares`` it is ``jnp.sum(x * x)`` inside a fused computation
+    (``jnp.std``'s squared deviations): up to 32 elements XLA folds each
+    square into its add; in blocks it rounds the squares first (found
+    for n = 64).  One op per column: a few dozen small ops on the card
+    and no host read."""
+    n = x.shape[0]
+    if n <= 32:
+        return _fold(x.unbind(0), squares)
+    if squares:
+        x = x * x
+    k = -(-n // 32)
+    return reduce_sum(_fold(_blocks(x, -(-n // k)).unbind(1), False))
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum`` of a 1-D float32 tensor in XLA's CPU order (its
+    reduce-window rewriter): each block of 16 summed left to right,
+    plus the cumulative sum of the earlier blocks' totals, itself
+    taken the same way."""
+    n = x.shape[0]
+    rows = _blocks(x, 16)
+    cols = [rows[:, 0]]
+    for j in range(1, 16):
+        cols.append(cols[-1] + rows[:, j])
+    inb = torch.stack(cols, 1)
+    if n > 16:
+        prefix = cumsum(inb[:, -1])
+        inb = torch.cat([inb[:1], inb[1:] + prefix[:-1, None]])
+    return inb.reshape(-1)[:n]
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_fn(name: str, nargs: int):
+    # find_library needs ldconfig or a compiler; glibc's soname otherwise
+    path = ctypes.util.find_library("m") or "libm.so.6"
+    fn = getattr(ctypes.CDLL(path), name)
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float] * nargs
+    return np.frompyfunc(fn, nargs, 1)
+
+
+def libm(name: str, *args) -> torch.Tensor:
+    """The C library's float32 function ``name`` (``"sinf"``,
+    ``"powf"``) elementwise over broadcast CPU tensors or scalars,
+    computed on the host: one call per element, for the small
+    host-side tables of the workload generators."""
+    arrs = [np.asarray(a.numpy() if torch.is_tensor(a) else a, np.float32)
+            for a in args]
+    out = _libm_fn(name, len(arrs))(*arrs)
+    return torch.from_numpy(np.asarray(out, dtype=np.float32))
 
 
 def _rows(src, idx: torch.Tensor, dtype) -> torch.Tensor:

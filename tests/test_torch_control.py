@@ -62,9 +62,10 @@ def test_hysteresis_trajectory_matches_live_reference():
 
 
 def test_registry_and_knob_schema():
-    assert tctrl.available() == ("hysteresis",)
-    with pytest.raises(ValueError, match="available: hysteresis"):
-        tctrl.get("aimd")
+    assert tctrl.available() == ("aimd", "deadband_pid", "hysteresis",
+                                 "static")
+    with pytest.raises(ValueError, match="available: aimd, deadband_pid"):
+        tctrl.get("bang_bang")
     k = tctrl.init_knobs(2.0, "cpu")
     assert k.d.dtype == torch.int32 and int(k.d) == tctrl.D_INIT
     assert float(k.delta_t) == 2.0
@@ -100,10 +101,10 @@ def test_ewma_and_imbalance_match_jitted_reference():
         want = jax.jit(lambda p, v: jtel.ewma(p, v, 0.2))(prev, x)
         got = ttel.ewma(torch.as_tensor(prev), torch.as_tensor(x), 0.2)
         np.testing.assert_array_equal(np.asarray(want), got.numpy())
-        # std/mean: the float32 sum order over m can differ by an ulp
+        # std/mean with XLA's sum orders and fused squares: bit for bit
         want = np.asarray(jax.jit(jtel.imbalance)(got.numpy()))
         got_b = ttel.imbalance(got).numpy()
-        np.testing.assert_allclose(got_b, want, rtol=1e-6)
+        np.testing.assert_array_equal(got_b, want)
 
 
 def test_ewma_series_and_weighted_quantiles_are_the_reference():

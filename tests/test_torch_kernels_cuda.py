@@ -929,3 +929,63 @@ def test_cuda_dispatch_steer_rejects_what_it_does_not_take():
                               4)
     with pytest.raises(ValueError, match="cand must be"):
         kernel.dispatch_steer(cand[0], vals, load, 4)
+
+
+PLANE_CONFIGS = [
+    dict(policy="chbl"),
+    dict(policy="midas", middleware=("cache",),
+         ablate="no_margin,no_pin,no_bucket"),
+    dict(policy="midas", middleware=("cache",), controller="aimd"),
+    dict(policy="midas", middleware=("cache",), controller="deadband_pid",
+         cache_mode="ttl_per_key"),
+    dict(policy="midas", middleware=("cache",), guard=True),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kw", PLANE_CONFIGS,
+                         ids=lambda kw: ",".join(f"{k}={v}" for k, v in
+                                                 kw.items()))
+def test_cuda_evaluation_plane_matches_its_plain_run(kw):
+    """chbl through route_select once a wave, and midas under the
+    ablations and the other control laws through route_tick once a
+    tick, bit for bit the plain run on the card (700 ticks: the slow
+    loop runs once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import make_workload
+    from repro_torch.core import sim as tsim
+    from repro_torch.kernels.midas_route import kernel
+
+    T = 700
+    wl = make_workload("bursty", T=T, m=8, seed=3, N=512, write_frac=0.5,
+                       device="cuda")
+    runs = {}
+    for impl in ("cuda", "ref"):
+        cfg = tsim.SimConfig(m=8, N=512, route_impl=impl, **kw)
+        before = (kernel.route_select.launches, kernel.route_tick.launches)
+        st = tsim.init_state(cfg, 0.15, 500.0, device="cuda")
+        runs[impl] = tsim.run_ticks(cfg, st, wl.keys, wl.mask, wl.is_write)
+        n = (kernel.route_select.launches - before[0],
+             kernel.route_tick.launches - before[1])
+        if impl == "ref":
+            assert n == (0, 0)
+        elif kw["policy"] == "chbl":
+            assert n == (T * cfg.n_groups, 0)
+        else:
+            assert n == (0, T)
+    (fa, oa), (fb, ob) = runs["cuda"], runs["ref"]
+    for f in oa._fields:
+        assert torch.equal(getattr(oa, f), getattr(ob, f)), f
+    la, lb = _leaves(fa), _leaves(fb)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return []

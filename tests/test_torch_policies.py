@@ -122,6 +122,7 @@ def test_draws_batch_over_waves():
 
 
 def test_registry_lists_the_ported_policies():
-    assert tpol.available() == ("hash", "midas", "power_of_d")
-    with pytest.raises(ValueError, match="available: hash, midas"):
-        tpol.get("jsq")
+    assert tpol.available() == ("chbl", "hash", "jsq", "midas", "power_of_d",
+                                "round_robin", "rr_request", "uniform")
+    with pytest.raises(ValueError, match="available: chbl, hash, jsq"):
+        tpol.get("least_loaded")

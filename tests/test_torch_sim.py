@@ -149,12 +149,13 @@ def _assert_trees_match(want, got):
 
 def test_unported_choices_raise_naming_the_roadmap_item():
     for kw in (dict(fleet_routing=True), dict(faults=("crash",)),
-               dict(guard=True), dict(ablate="no_pin"),
                dict(unroll_waves=True), dict(middleware=("fleet_cache",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsim.SimConfig(**kw)
-    with pytest.raises(ValueError, match="available: hash, midas"):
-        tsim.SimConfig(policy="chbl")
+    with pytest.raises(ValueError, match="available: chbl, hash, jsq"):
+        tsim.SimConfig(policy="least_loaded")
+    with pytest.raises(ValueError, match="available: no_margin"):
+        tsim.SimConfig(ablate="no_cache")
     with pytest.raises(ValueError, match="available: auto, ref, cuda"):
         tsim.SimConfig(route_impl="pallas")
     with pytest.raises(ValueError, match="available: lease"):

@@ -102,6 +102,8 @@ def test_light_workload_and_registry():
         lam / 400)
     jl = jmake("light", T=400, m=M, seed=99, N=N)
     np.testing.assert_array_equal(np.asarray(jl.keys), wl.keys.numpy())
-    assert workloads.available() == ("bursty", "light")
-    with pytest.raises(ValueError, match="available: bursty, light"):
-        workloads.make_workload("storm", T=4, m=M, device="cpu")
+    assert workloads.available() == (
+        "bursty", "diurnal", "light", "periodic", "skewed", "storm",
+        "uniform_heavy")
+    with pytest.raises(ValueError, match="available: bursty, diurnal"):
+        workloads.make_workload("flash_crowd", T=4, m=M, device="cpu")
