@@ -26,7 +26,8 @@ Qwen3-MoE-235B-A22B.  Phases:
    ``route_tick`` (a tick's 8 waves of the midas policy in one launch)
    bitwise against the engine's waves one at a time, at the engine's
    shape, with repeated keys, live and expired pins, binding and free
-   budgets, ragged masks and a wrapping history ring;
+   budgets, ragged masks and a wrapping history ring, with one shared
+   view and with per-wave base views (fleet routing), timed in both;
    ``flash_attention`` also at Qwen3-MoE's prefill shape, with its bound
    on the tensor cores and the CUDA cores' beside it, and bitwise equal
    on a repeated call; ``dispatch_steer`` against
@@ -45,17 +46,32 @@ Qwen3-MoE-235B-A22B.  Phases:
    must give the same timelines, dV and final state bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
 10. (run right after phase 5) the evaluation plane at phase 3's
-   constants and grid, 400 ticks each: ``chbl`` (one ``route_select``
-   launch a wave, 3200), and midas + cache under the ``no_margin``,
+   constants and grid, 200 ticks each: ``chbl`` (one ``route_select``
+   launch a wave, 1600), and midas + cache under the ``no_margin``,
    ``no_pin`` and ``no_bucket`` ablations, the ``aimd``,
    ``deadband_pid`` and ``static`` controllers and the oscillation
-   guard (one ``route_tick`` launch a tick, 400 each), every one bit for
+   guard (one ``route_tick`` launch a tick, 200 each), every one bit for
    bit its plain run; ``round_robin``, ``rr_request``, ``uniform`` and
    ``jsq``, which launch no kernel; phase 5's card-vs-CPU run for every
    new policy and control law, and a 1200-tick guard run whose trips
    the card and the CPU count alike; E1/E2 (``round_robin`` against
-   ``power_of_d`` on the paper's five workloads at m = 8, cut to 600
+   ``power_of_d`` on the paper's five workloads at m = 8, cut to 300
    ticks from the paper's 3000) with the four claims and both ticks/s;
+11. (run right after phase 10) the fleet path, E9's: the
+   ``rename_storm`` scenario realized on the card at phase 3's
+   constants, served by P = 8 proxies (``fleet_cache``, 100 ms gossip,
+   a lag ring of 2 ticks over the 10**6 keys, lease mode) with fleet
+   routing (each proxy routes its own wave on its own staggered view),
+   400 ticks with warmup: exactly 400 ``route_tick`` launches (the
+   kernel's per-wave base views), its ticks/s and kernels a tick; the
+   plain wave loop bit for bit on every output, dV and the final state
+   (the per-proxy counters summing to the aggregates); the Δ = 0
+   contract (a gossip_ms = 0 fleet without fleet routing equals the
+   shared cache bit for bit); 200 ticks of ``power_of_d`` under fleet
+   routing (exactly 1600 ``route_select`` launches, bitwise its plain
+   run); the card against the CPU at m = 8, T = 200 on CPU-realized
+   grids of the E9 scenarios, ``multi_tenant``, ``adversarial`` and
+   ``trace_replay``, over the nine (gossip, cache mode) cells of E9;
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
    8 requests of a 512-token prompt and 32 greedy decode steps behind a
@@ -381,6 +397,17 @@ def tick_case(torch, np, sim, seed, f_max, pool):
             hashring.feasible_set(ring, keys, d_max), draws, consts)
 
 
+def fleet_views(torch, np, seed):
+    """(G, m) per-wave views on the card, each proxy's own: a grid of
+    tenths with a few hot servers a wave, so rows are eligible."""
+    G, _, m, _, _ = TICK_SHAPE
+    rng = np.random.default_rng(seed + 100)
+    views = np.round(rng.random((G, m)) * 6, 1).astype(np.float32)
+    for g in range(G):
+        views[g, rng.integers(0, m, 4)] += 30.0
+    return torch.as_tensor(views).cuda()
+
+
 def clone(tree):
     import torch
 
@@ -444,6 +471,36 @@ def phase_route_tick(torch, np, sim, kernel):
         f"eligible, dV, pin tables, histories and hist_idx (max |diff| 0; "
         f"{steered} of {eligible} eligible steered; the budget bound in "
         f"{binds})")
+    fleet_steered = 0
+    for seed, f_max, pool in TICK_CASES:
+        case = tick_case(torch, np, sim, seed, f_max, pool)
+        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+        views = fleet_views(torch, np, seed)
+        out = {}
+        for impl in ("ref", "cuda"):
+            s = st._replace(policy=clone(st.policy))
+            out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys,
+                                         mask, feas, draws, impl, consts,
+                                         views)
+        torch.cuda.synchronize()
+        (wps, wt), (gps, gt) = out["ref"], out["cuda"]
+        pairs = [("assign", wt.assign, gt.assign),
+                 ("arrivals", wt.arrivals, gt.arrivals)]
+        pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
+                  for f in fields]
+        pairs += [(f, getattr(wps, f), getattr(gps, f))
+                  for f in wps._fields]
+        for name, w, g in pairs:
+            check(w.dtype == g.dtype and torch.equal(w, g),
+                  f"route_tick fleet views {(seed, f_max, pool)}: {name} "
+                  f"differs from the waves one at a time")
+        fleet_steered += int(gt.stats.steered)
+    check(fleet_steered > 0, "route_tick's fleet-view cases never steered")
+    say(f"[2] route_tick with per-wave base views (fleet routing: wave g "
+        f"on its proxy's view alone, no sends shared): the same "
+        f"{len(TICK_CASES)} ticks equal to the waves one at a time fed "
+        f"the same views on every output and the policy state "
+        f"({fleet_steered} steered)")
 
     case = tick_case(torch, np, sim, *TICK_CASES[0])
     cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
@@ -466,9 +523,16 @@ def phase_route_tick(torch, np, sim, kernel):
         return lambda: sim._route_waves(cfg, policy, st, knobs, now, keys,
                                         mask, feas, draws, impl, consts)
 
+    fleet_args = (*args[:5], fleet_views(torch, np, TICK_CASES[0][0]),
+                  *args[6:])
+
+    def k_fleet():
+        kernel.route_tick(*fleet_args, **kw)
+
     row = dict(
         name="route_tick", shape=TICK_SHAPE,
         ms=device_ms(torch, [k_fn], N_GRAPH),
+        fleet_ms=device_ms(torch, [k_fleet], N_GRAPH),
         plain_ms=device_ms(torch, [path("ref")], 10),
         host_ms=host_ms(torch, k_fn),
         tick_host_ms=host_ms(torch, path("cuda")),
@@ -481,6 +545,9 @@ def phase_route_tick(torch, np, sim, kernel):
         f"{row['host_ms'] * 1e3:.2f} us, the engine's tick routing with "
         f"it (kernel + dV) {row['tick_host_ms'] * 1e3:.2f} us, plain waves "
         f"{row['plain_host_ms'] * 1e3:.2f} us")
+    say(f"[2] route_tick with per-wave base views at the same shape: device "
+        f"kernel {row['fleet_ms'] * 1e3:.3f} us (one shared view: "
+        f"{row['ms'] * 1e3:.3f} us)")
     return row
 
 
@@ -1041,14 +1108,14 @@ def read_counts(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
-def kernels_per_tick(torch, sim, cfg, targets, wl) -> float:
-    """Device kernels a tick of the main path, counted by torch.profiler
-    over ticks PROFILE_LEAD to PROFILE_LEAD + PROFILE_TICKS (their
-    horizon set-up included), as benchmarks_torch/profile_main_path.py
-    counts them."""
+def kernels_per_tick(torch, sim, cfg, targets, wl,
+                     lead=PROFILE_LEAD) -> float:
+    """Device kernels a tick of a path, counted by torch.profiler over
+    ticks ``lead`` to ``lead`` + PROFILE_TICKS (their horizon set-up
+    included), as benchmarks_torch/profile_main_path.py counts them."""
     from torch.profiler import ProfilerActivity, profile
 
-    lo, hi = PROFILE_LEAD, PROFILE_LEAD + PROFILE_TICKS
+    lo, hi = lead, lead + PROFILE_TICKS
     st = sim.init_state(cfg, *targets, device="cuda")
     st, _ = sim.run_ticks(cfg, st, wl.keys[:lo], wl.mask[:lo],
                           wl.is_write[:lo])
@@ -1218,7 +1285,7 @@ def phase_small(np, core):
 # the guard, E1/E2
 # ---------------------------------------------------------------------------
 
-PLANE_TICKS = 400  # each phase-10 run at phase 3's constants
+PLANE_TICKS = 200  # each phase-10 run at phase 3's constants
 PLANE_VARIANTS = (  # midas + cache under each, through route_tick
     dict(ablate="no_margin"), dict(ablate="no_pin"),
     dict(ablate="no_bucket"), dict(controller="aimd"),
@@ -1234,7 +1301,7 @@ PLANE_SMALL = tuple(dict(policy=p) for p in PLANE_BASELINES + ("chbl",)) \
         dict(controller="static"), dict(ablate="no_margin,no_pin,no_bucket"),
         dict(guard=True)))
 GUARD_TICKS = 1200  # the small guard run: two slow windows of 600 ticks
-CLAIMS_T = 600  # E1/E2 cut from the paper's T = 3000 for time
+CLAIMS_T = 300  # E1/E2 cut from the paper's T = 3000 for time
 
 
 def plane_grid(wl, T):
@@ -1373,6 +1440,169 @@ def phase_claims(core, counters):
         f"for round_robin; ticks/s round_robin {tps['round_robin']:.1f}, "
         f"power_of_d {tps['power_of_d']:.1f}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the fleet path -- E9's scenarios served by P proxies with
+# gossip, each proxy routing its own wave on its own view
+# ---------------------------------------------------------------------------
+
+FLEET = dict(FULL, P=8, policy="midas", middleware=("fleet_cache",),
+             fleet_routing=True, gossip_ms=100.0, cache_mode="lease")
+FLEET_TICKS = 400
+FLEET_SCENARIO = "rename_storm"
+FLEET_PROFILE_LEAD = 300  # the 50-tick profiler window starts here
+FLEET_POD_TICKS = 200  # the power_of_d fleet run
+FLEET_SMALL_T = 200  # the card-vs-CPU runs at m = 8
+# the four E9 scenarios (benchmarks/fleet.py) and the other composed
+# workloads; the nine (gossip ms, cache mode) cells of E9 take them in turn
+FLEET_SMALL_WL = ("rename_storm", "job_startup", "flash_crowd", "skewed",
+                  "multi_tenant", "adversarial", "trace_replay")
+FLEET_SMALL_CELLS = tuple((g, mode) for g in (0.0, 100.0, 400.0)
+                          for mode in ("lease", "ttl_aggregate",
+                                       "ttl_per_key"))
+FLEET_COUNTERS = (("hits_p", "hits"), ("misses_p", "misses"),
+                  ("stale_p", "stale_serves"), ("bypasses_p", "bypasses"))
+
+
+def check_fleet_counters(fc, P, what) -> None:
+    """The per-proxy counters sum to the aggregate ones."""
+    for per, agg in FLEET_COUNTERS:
+        check(int(getattr(fc, per).sum()) == int(getattr(fc, agg)),
+              f"{what}: {per} sums to {int(getattr(fc, per).sum())}, the "
+              f"aggregate {agg} is {int(getattr(fc, agg))}")
+    check(tuple(fc.hits_p.shape) == (P,), f"{what}: {P} proxies expected")
+
+
+def phase_fleet(torch, np, core, sim, counters):
+    """The fleet path at phase 3's constants: midas + fleet_cache with
+    fleet routing (one route_tick launch a tick, each wave on its proxy's
+    view), bitwise its plain run; the Δ = 0 contract; power_of_d under
+    fleet routing (route_select once a proxy's wave); the card against
+    the CPU on the composed workloads.  Returns the launches."""
+    cfg = core.SimConfig(**FLEET)
+    T = FLEET_TICKS
+    wl = core.make_workload(FLEET_SCENARIO, T=T, m=cfg.m, seed=SEED,
+                            N=cfg.N, R=R_FULL, device="cuda")
+    grid = (wl.keys, wl.mask, wl.is_write)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    targets = sim.warmup(cfg, device="cuda")
+    warm_s = time.perf_counter() - t0
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    res = core.simulate(cfg, wl, device="cuda")
+    run_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_tick"] = T
+    say(f"[11] launches in the fleet run: {counts} (expected one route_tick "
+        f"a tick, {T}, and no other kernel)")
+    check(counts == want, f"{counts} launches, expected {want}")
+    check_result(np, res, wl, T, cfg.m)
+    fc = res.final_cache
+    check_fleet_counters(fc, cfg.P, "fleet run")
+    served = int(((fc.hits_p + fc.misses_p) > 0).sum())
+    check(served == cfg.P, f"only {served} of {cfg.P} proxies served")
+    ring = tensor_bytes((fc.lag_expiry, fc.lag_version))
+    main_s = max(run_s - warm_s, 1e-9)
+    say(f"[11] {FLEET_SCENARIO} at m={cfg.m} N={cfg.N} R={R_FULL} "
+        f"P={cfg.P} gossip {cfg.gossip_ms:g} ms (ring of "
+        f"{fc.lag_expiry.shape[0]} ticks, {ring / 1e6:.1f} MB), T={T}: "
+        f"mean_queue={res.mean_queue():.6f} "
+        f"worst_case_queue={res.worst_case_queue():.6f} "
+        f"steered={res.steered.sum():.0f} "
+        f"hits={int(fc.hits)} misses={int(fc.misses)} "
+        f"stale={int(fc.stale_serves)} bypasses={int(fc.bypasses)}; "
+        f"per proxy: hits {fc.hits_p.tolist()}, stale "
+        f"{fc.stale_p.tolist()} (they sum to the aggregates)")
+    per_tick = kernels_per_tick(torch, sim, cfg, targets, wl,
+                                lead=FLEET_PROFILE_LEAD)
+    say(f"[11] fleet run: {T / main_s:.1f} ticks/s ({run_s:.3f} s incl. "
+        f"warmup, {warm_s:.3f} s alone), {per_tick:.1f} kernels a tick "
+        f"(ticks {FLEET_PROFILE_LEAD}-{FLEET_PROFILE_LEAD + PROFILE_TICKS} "
+        f"profiled); card {card_line()}")
+
+    runs = run_both(torch, sim, cfg, grid, targets)
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0], "fleet midas")
+    again = sim._to_result(cfg, runs["cuda"][0][1], None)
+    for f in FIELDS:
+        check(np.array_equal(getattr(res, f), getattr(again, f)),
+              f"fleet: simulate vs run_ticks: {f} differs")
+    say(f"[11] the same {T} ticks with the plain wave loop: every per-tick "
+        f"output (dV included) and the final state (FleetState: the "
+        f"converged table, the gossip log, the lag ring, hits_p, misses_p, "
+        f"stale_p, bypasses_p; the pin tables and histories) bit-for-bit "
+        f"equal to the route_tick run ({T / runs['cuda'][1]:.1f} ticks/s, "
+        f"plain {T / runs['ref'][1]:.1f})")
+
+    fleet0 = dataclasses.replace(cfg, gossip_ms=0.0, fleet_routing=False)
+    shared = dataclasses.replace(fleet0, middleware=("cache",))
+    (fa, oa), (fb, ob) = (
+        sim.run_ticks(c, sim.init_state(c, *targets, device="cuda"), *grid)
+        for c in (fleet0, shared))
+    for f in oa._fields:
+        check(torch.equal(getattr(oa, f), getattr(ob, f)),
+              f"Δ=0: per-tick {f} differs from the shared cache's")
+    for i, (x, y) in enumerate(zip(tree_leaves(fa.mw[0].shared),
+                                   tree_leaves(fb.mw[0]))):
+        check(torch.equal(x, y), f"Δ=0: table leaf {i} differs")
+    check(all(torch.equal(x, y) for x, y in
+              zip(tree_leaves(fa.policy), tree_leaves(fb.policy))),
+          "Δ=0: the policy state differs")
+    check_fleet_counters(fa.mw[0], cfg.P, "Δ=0 fleet run")
+    say(f"[11] Δ=0: a gossip_ms=0 fleet run (fleet routing off) equals the "
+        f"shared ('cache',) run bit for bit: every per-tick output, the "
+        f"table, the counters ({int(fb.mw[0].hits)} hits, "
+        f"{int(fb.mw[0].stale_serves)} stale) and the policy state")
+
+    pod = dataclasses.replace(cfg, policy="power_of_d")
+    n = FLEET_POD_TICKS
+    zero_counts(counters)
+    runs = run_both(torch, sim, pod, tuple(x[:n] for x in grid),
+                    (0.15, 5.0 * cfg.service_ms))
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_select"] = n * cfg.P
+    check(counts == want, f"power_of_d fleet: {counts}, expected {want}")
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0],
+                     "power_of_d fleet")
+    say(f"[11] power_of_d under fleet routing, {n} ticks: "
+        f"{want['route_select']} route_select launches (one a proxy's "
+        f"wave), no other kernel; bit-for-bit its plain run; "
+        f"{n / runs['cuda'][1]:.1f} ticks/s")
+    pod_launches = counts["route_select"]
+
+    for i, (gossip, mode) in enumerate(FLEET_SMALL_CELLS):
+        name = FLEET_SMALL_WL[i % len(FLEET_SMALL_WL)]
+        small = core.SimConfig(m=8, P=8, policy="midas",
+                               middleware=("fleet_cache",),
+                               fleet_routing=True, gossip_ms=gossip,
+                               cache_mode=mode)
+        swl = core.make_workload(name, T=FLEET_SMALL_T, m=8, seed=i,
+                                 device="cpu")
+        cpu = core.simulate(small, swl, do_warmup=False, device="cpu")
+        gpu = core.simulate(small, swl, do_warmup=False, device="cuda")
+        what = f"{name}, gossip {gossip:g} ms, {mode}"
+        for f in FIELDS:
+            a, b = getattr(cpu, f), getattr(gpu, f)
+            if f == "pressure":
+                check(np.allclose(a, b, rtol=1e-6, atol=0),
+                      f"{what}: pressure differs")
+            else:
+                check(np.array_equal(a, b), f"{what}: card vs CPU: {f} "
+                      f"differs")
+        for per, agg in FLEET_COUNTERS:
+            for x in (per, agg):
+                check(torch.equal(getattr(cpu.final_cache, x),
+                                  getattr(gpu.final_cache, x).cpu()),
+                      f"{what}: card vs CPU: {x} differs")
+        say(f"[11] small {what} (m=8, T={FLEET_SMALL_T}, CPU-realized): "
+            f"the card equals the CPU; steered={cpu.steered.sum():.0f} "
+            f"hits={int(cpu.final_cache.hits)} "
+            f"stale={int(cpu.final_cache.stale_serves)}")
+    return pod_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1780,6 +2010,9 @@ def main() -> int:
         phase_plane_small(np, core, sim)
         claims_launches = phase_claims(core, counters)
         say(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        fleet_pod = phase_fleet(torch, np, core, sim, counters)
+        say(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
         model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
             torch, np, serving, counters, model, tag=6,
@@ -1824,11 +2057,12 @@ def main() -> int:
         kernel_entry("route_select", csrc.format("midas_route",
                                                  "route_select"),
                      REPLACES, launches + plane["route_select"]
-                     + claims_launches["route_select"], max_err, main_row),
+                     + claims_launches["route_select"] + fleet_pod,
+                     max_err, main_row),
         kernel_entry("route_tick", csrc.format("midas_route",
                                                "route_select"),
-                     TICK_REPLACES, tick_launches + plane["route_tick"],
-                     0.0, tick_row),
+                     TICK_REPLACES, tick_launches + plane["route_tick"]
+                     + FLEET_TICKS, 0.0, tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",

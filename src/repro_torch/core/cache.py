@@ -19,11 +19,13 @@ Write-pressure guard: when the write-mix signal (:func:`write_pressure`)
 exceeds ``W_HIGH``, misses are served through without installing, and
 counted in ``CacheState.bypasses``.
 
-This is the converged shared table (the Δ=0 gossip limit).  The five
-(N,) per-key tables are updated IN PLACE: at N = 10**6 a functional copy
-per tick would move more bytes than the tick's whole work.  Every
-scatter masks its dropped rows instead of aiming them at the reference's
-out-of-bounds sentinel N (:mod:`repro_torch.core.xla`).  Repeated keys in
+This is the converged shared table (the Δ=0 gossip limit); the proxy
+fleet of :mod:`repro_torch.core.fleet` keeps one and derives each
+proxy's view from it.  The five (N,) per-key tables are updated IN
+PLACE: at N = 10**6 a functional copy per tick would move more bytes
+than the tick's whole work.  Every scatter masks its dropped rows
+instead of aiming them at the reference's out-of-bounds sentinel N
+(:mod:`repro_torch.core.xla`).  Repeated keys in
 one batch write equal values in every ``set`` scatter here (each value
 depends only on the key and the table before the scatter), except the
 version bump, which counts every repeat.
@@ -62,6 +64,17 @@ class CacheState(NamedTuple):
     misses: torch.Tensor          # () int32
     stale_serves: torch.Tensor    # () int32
     bypasses: torch.Tensor        # () int32 installs skipped by the guard
+
+
+class BatchEffects(NamedTuple):
+    """Per-request effect flags of one :func:`apply_batch` tick -- the
+    single source the shared table's counters and the fleet's gossip
+    events and per-proxy counters are derived from."""
+
+    invalidated: torch.Tensor  # (R,) bool rows that invalidate their key
+    installed: torch.Tensor    # (R,) bool rows that install their key
+    miss: torch.Tensor         # (R,) bool valid read misses
+    bypassed: torch.Tensor     # (R,) bool misses the guard served through
 
 
 def init_cache(
@@ -132,13 +145,16 @@ def apply_batch(
     lease_ms: float = 5000.0,
     rtt_ms: float = 2.0,
     p_star: float = P_STAR,
-) -> CacheState:
+) -> Tuple[CacheState, BatchEffects]:
     """Apply one tick's effects to the table, given hit flags.
 
     Writes always reach the server: they bump the authoritative version,
     feed the hazard estimators and, in lease mode, invalidate the entry.
     Misses install an entry with the mode's validity horizon unless the
     write-pressure guard is active.  ``keys`` is int64 in [0, N).
+    Returns ``(new_cache, effects)``: the rows that invalidated or
+    installed their key (the fleet's gossip events) and the miss and
+    bypass flags the counters count.
     """
     if mode not in MODES:
         raise ValueError(
@@ -189,14 +205,19 @@ def apply_batch(
     def count(flags):
         return flags.sum().to(torch.int32)
 
-    return cache._replace(
+    bypassed = miss & bypass
+    new = cache._replace(
         win_writes=cache.win_writes + w.sum(),
         win_reads=cache.win_reads + valid.sum(),
         hits=cache.hits + count(hit),
         misses=cache.misses + count(miss),
         stale_serves=cache.stale_serves + count(stale),
-        bypasses=cache.bypasses + count(miss & bypass),
+        bypasses=cache.bypasses + count(bypassed),
     )
+    # TTL modes invalidate nothing: their entries expire
+    invalidated = w if mode == "lease" else torch.zeros_like(w)
+    return new, BatchEffects(invalidated=invalidated, installed=install,
+                             miss=miss, bypassed=bypassed)
 
 
 def lookup_batch(
@@ -224,7 +245,7 @@ def lookup_batch(
         is_write,
         now_ms,
     )
-    new = apply_batch(
+    new, _ = apply_batch(
         cache, keys, mask, is_write, hit, stale, now_ms,
         mode=mode, lease_ms=lease_ms, rtt_ms=rtt_ms, p_star=p_star,
     )

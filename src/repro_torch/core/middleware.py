@@ -7,9 +7,9 @@ their mask bits, and carries its own state across ticks.  Stages also
 get a slow-loop hook on the paper's T_slow cadence.
 
 ``SimConfig.middleware`` is a tuple of registered stage names applied
-in order.  The port carries the cooperative cache (``"cache"``); the
-gossip-delayed ``"fleet_cache"`` comes with the fleet (ROADMAP §1
-item 13).
+in order.  The port carries the cooperative cache (``"cache"``) and its
+gossip-delayed proxy fleet (``"fleet_cache"``).  The fault layer's
+``on_fault`` hook comes with the fault layer (ROADMAP §1 item 15).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Any, NamedTuple, Tuple, Type
 import torch
 
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import fleet as fleet_lib
 from repro_torch.core import registry as registry_lib
 from repro_torch.core.controllers.base import T_SLOW_MS, Knobs
 
@@ -112,6 +113,53 @@ class CooperativeCache(Middleware):
     def on_slow(self, state: cache_lib.CacheState, cfg, knobs: Knobs):
         lease = cfg.lease_ms if cfg.cache_mode == "lease" else float("inf")
         return cache_lib.slow_update(
+            state,
+            T_SLOW_MS,
+            cfg.rtt_ms,
+            lease,
+            cfg.p_star,
+            ttl_scale=knobs.ttl_scale,
+        )
+
+
+@register("fleet_cache")
+class FleetCache(Middleware):
+    """The cooperative cache as ``cfg.P`` real proxies with gossip.
+
+    Requests are sharded across the fleet per tick (slot r → proxy
+    (r + tick) % P); each proxy decides hits against its own
+    gossip-delayed view (``cfg.gossip_ms`` propagation, see
+    :mod:`repro_torch.core.fleet`), while effects land on the converged
+    table.  At ``gossip_ms=0`` this stage reproduces ``"cache"`` bit for
+    bit -- the Δ=0 equivalence contract.
+    """
+
+    def init(self, cfg, device=None) -> fleet_lib.FleetState:
+        D = fleet_lib.delay_ticks(cfg.gossip_ms, cfg.dt_ms)
+        return fleet_lib.init_fleet(cfg.N, cfg.P, D, device=device)
+
+    def on_batch(self, state: fleet_lib.FleetState, batch: BatchView, cfg):
+        R = batch.keys.shape[0]
+        proxy = fleet_lib.proxy_assign(R, cfg.P, state.tick)
+        state, hit = fleet_lib.lookup_fleet(
+            state,
+            batch.keys,
+            batch.mask,
+            batch.is_write,
+            proxy,
+            batch.now_ms,
+            mode=cfg.cache_mode,
+            lease_ms=cfg.lease_ms,
+            rtt_ms=cfg.rtt_ms,
+            p_star=cfg.p_star,
+            gossip_ms=cfg.gossip_ms,
+        )
+        # hits are served by their proxy and never reach the servers
+        return state, batch.mask & ~hit, hit.sum().to(torch.float32)
+
+    def on_slow(self, state: fleet_lib.FleetState, cfg, knobs: Knobs):
+        lease = cfg.lease_ms if cfg.cache_mode == "lease" else float("inf")
+        return fleet_lib.slow_fleet(
             state,
             T_SLOW_MS,
             cfg.rtt_ms,

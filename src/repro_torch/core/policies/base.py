@@ -169,8 +169,10 @@ class Policy:
     ) -> Optional[Tuple[Any, TickRoute]]:
         """Route a tick's G waves in one kernel launch, bit for bit as
         :meth:`route` wave by wave would.  ``ctx`` holds (G, Rg) waves,
-        their (G, Rg, d_max) draws, and in ``L_view`` the stale view
-        without this tick's sends.  Default: None, no such kernel."""
+        their (G, Rg, d_max) draws, and in ``L_view`` the (m,) stale view
+        without this tick's sends, or under fleet routing the (G, m)
+        per-wave views (wave g routes on row g alone).  Default: None,
+        no such kernel."""
         return None
 
 

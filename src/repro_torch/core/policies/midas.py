@@ -179,7 +179,9 @@ class Midas(Policy):
         route_select's test, the pins, the leaky bucket and the history
         ring of :func:`route_midas` for every wave in order.  The dV is
         taken from the kernel's per-wave views and assignments with the
-        per-wave path's operations (``steering_dv_waves``)."""
+        per-wave path's operations (``steering_dv_waves``).  A (G, m)
+        ``ctx.L_view`` is fleet routing's per-wave views: wave g routes
+        on row g alone, with no sends shared within the tick."""
         k = ctx.knobs
         assign, views, arrivals, steered, eligible, hist_idx = (
             route_ops.route_tick(

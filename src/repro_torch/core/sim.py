@@ -8,6 +8,10 @@ sequential waves with the policy resolved from the registry, applies
 service, refreshes the (delayed) telemetry, and runs the fast/slow
 control loops on their paper cadences.  Every wave sees the stale EWMA
 telemetry *plus* the proxies' own sends from earlier waves of the tick.
+Under fleet routing each of the ``P`` proxies routes one wave (the
+slots r ≡ g mod P) on its own staggered telemetry view, with no sends
+shared within the tick, and one control loop reads the fleet's
+consensus view.
 
 The tick loop is a Python loop with the tick clock as a Python int, so
 the fast and slow cadences are host ``if``s.  Nothing inside a tick
@@ -22,7 +26,7 @@ bit-for-bit the reference's.
 ``simulate`` runs one config and returns a :class:`SimResult` with the
 paper metrics.  The engine runs on the CUDA device unless the caller
 passes ``device="cpu"``.  Configurations that need a part not ported
-yet (fleet routing, faults, the unrolled reference engine) raise
+yet (faults, the unrolled reference engine) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import controllers as ctrl_lib
+from repro_torch.core import fleet as fleet_lib
 from repro_torch.core import hashring, prng, telemetry
 from repro_torch.core import middleware as mw_lib
 from repro_torch.core import policies as policy_lib
@@ -76,8 +81,12 @@ class SimConfig:
     cache_mode: str = "lease"  # lease | ttl_aggregate | ttl_per_key
     lease_ms: float = 5000.0
     p_star: float = 1e-4
-    gossip_ms: float = 0.0  # fleet_cache gossip delay (fleet, unported)
-    fleet_routing: bool = False  # per-proxy routing (fleet, unported)
+    # fleet knobs (core/fleet.py): gossip propagation delay for the
+    # "fleet_cache" stage, and per-proxy routing (one wave per proxy, own
+    # staggered telemetry view, no within-tick sharing across proxies --
+    # replaces the n_groups waves when enabled)
+    gossip_ms: float = 0.0
+    fleet_routing: bool = False
     fixed_d: int = 2  # d for power_of_d policy
     controller: str = "hysteresis"
     consensus: str = "mean"  # mean | median | max (fleet view reducer)
@@ -101,8 +110,6 @@ class SimConfig:
                     f"SimConfig.{name} must be a positive int, got {v!r}"
                 )
         policy_lib.get_class(self.policy)
-        if "fleet_cache" in self.middleware:
-            raise _unported("the fleet_cache middleware", 13)
         for stage in self.middleware:
             registry_lib.validate_choice(
                 stage, "middleware stage", mw_lib.available()
@@ -126,8 +133,6 @@ class SimConfig:
             raise ValueError(
                 f"SimConfig.gossip_ms must be >= 0, got {self.gossip_ms!r}"
             )
-        if self.fleet_routing:
-            raise _unported("fleet routing", 13)
         if self.faults:
             raise _unported("fault injection", 15)
         if self.unroll_waves:
@@ -197,7 +202,7 @@ class SimResult(NamedTuple):
     steered: np.ndarray  # (T,)
     eligible: np.ndarray  # (T,)
     cache_hits: np.ndarray  # (T,)
-    final_cache: Optional[object]  # CacheState on the run's device
+    final_cache: Optional[object]  # CacheState / FleetState on the device
     config: SimConfig
     f_max_timeline: Optional[np.ndarray] = None  # (T,) bucket cap
 
@@ -236,15 +241,22 @@ def _controller(cfg: SimConfig) -> ctrl_lib.Controller:
 
 
 def _wave_split(cfg: SimConfig, x: torch.Tensor) -> torch.Tensor:
-    """Reshape a (..., R) batch into (..., G, R/G) contiguous routing
-    waves, padding R to a multiple of G with zeros (False)."""
+    """Reshape a (..., R) batch into (..., G, R/G) routing waves, padding
+    R to a multiple of G with zeros (False).
+
+    Legacy: G = n_groups contiguous waves.  Fleet: one wave per proxy --
+    wave g holds slots r ≡ g (mod P), served by proxy (g + tick) % P to
+    match ``fleet.proxy_assign``."""
     R = x.shape[-1]
-    G = cfg.n_groups
+    G = cfg.P if cfg.fleet_routing else cfg.n_groups
     pad = (-R) % G
     if pad:
         z = torch.zeros(x.shape[:-1] + (pad,), dtype=x.dtype,
                         device=x.device)
         x = torch.cat([x, z], dim=-1)
+    if cfg.fleet_routing:
+        x = x.reshape(x.shape[:-1] + (-1, G))
+        return x.transpose(-1, -2).contiguous()
     return x.reshape(x.shape[:-1] + (G, -1))
 
 
@@ -345,20 +357,23 @@ def _route_waves(
     draws: Optional[tuple],
     impl: str,
     consts: _Consts,
+    views: Optional[torch.Tensor] = None,
 ):
     """Route one tick's G waves in order; each wave sees the stale EWMA
-    view plus this tick's own sends from the earlier waves.  With the
-    CUDA impl a policy that has a kernel for a whole tick
-    (``Policy.route_tick``: midas) routes it in one launch; otherwise,
-    and always on the CPU, the waves run one at a time, which is that
-    kernel's plain version.  Returns (policy state, TickRoute)."""
+    view plus this tick's own sends from the earlier waves, or, with
+    ``views`` (fleet routing: (G, m), row g the view of the proxy
+    serving wave g), its own row alone.  With the CUDA impl a policy
+    that has a kernel for a whole tick (``Policy.route_tick``: midas)
+    routes it in one launch; otherwise, and always on the CPU, the waves
+    run one at a time, which is that kernel's plain version.  Returns
+    (policy state, TickRoute)."""
     ps = state.policy
     if impl == "cuda":
         tick = policy.route_tick(ps, RouteContext(
             keys=keysg,
             mask=maskg,
             feas=feasg,
-            L_view=state.L_hat,
+            L_view=state.L_hat if views is None else views,
             p50_view=state.p50_hat,
             knobs=knobs,
             now_ms=now_ms,
@@ -377,7 +392,7 @@ def _route_waves(
             keys=keysg[g],
             mask=maskg[g],
             feas=feasg[g],
-            L_view=state.L_hat + sent,
+            L_view=state.L_hat + sent if views is None else views[g],
             p50_view=state.p50_hat,
             knobs=knobs,
             now_ms=now_ms,
@@ -414,8 +429,13 @@ def _ingest(cfg, controller, consts, s: SimState, jitter) -> SimState:
     """Fast loop: telemetry ingest, then the controller's fast step."""
     p50_o, p99_o = telemetry.sketch_quantiles(s.sketch)
     a = ctrl_lib.ALPHA_FAST
+    if cfg.fleet_routing:
+        # one control loop fed by the fleet's consensus view
+        L_hat = ctrl_lib.consensus_view(s.L_hat_p, cfg.consensus)
+    else:
+        L_hat = telemetry.ewma(s.L_hat, s.L, a)
     s = s._replace(
-        L_hat=telemetry.ewma(s.L_hat, s.L, a),
+        L_hat=L_hat,
         p50_hat=telemetry.ewma(s.p50_hat, p50_o, a),
         p99_hat=telemetry.ewma(s.p99_hat, p99_o, a),
     )
@@ -479,10 +499,14 @@ def _tick(
 
     # --- route in waves --------------------------------------------------
     draws = slice_draws(hz.draws, t)
+    tick = hz.t0 + t
+    # each proxy routes from its OWN staggered telemetry view
+    views = (fleet_lib.wave_views(state.L_hat_p, tick)
+             if cfg.fleet_routing else None)
     ps, routed = _route_waves(
         cfg, policy, state, controller.view(state.ctrl), now_ms,
         hz.keysg[t], _wave_split(cfg, mask), hz.feasg[t], draws, impl,
-        consts,
+        consts, views,
     )
     arrivals, stats = routed.arrivals, routed.stats
 
@@ -495,7 +519,11 @@ def _tick(
     )
 
     # --- telemetry ingest + control on the post-tick clock ---------------
-    t1 = hz.t0 + t + 1
+    t1 = tick + 1
+    if cfg.fleet_routing:
+        # per-proxy views: each proxy polls on its own staggered phase
+        state = state._replace(L_hat_p=telemetry.ewma_staggered(
+            state.L_hat_p, L, t1, cfg.t_fast_ticks, ctrl_lib.ALPHA_FAST))
     if t1 % cfg.t_fast_ticks == 0:
         state = _ingest(cfg, controller, consts, state, hz.jitter[t])
     if t1 % cfg.t_slow_ticks == 0:
@@ -622,8 +650,14 @@ def warmup(
 
 
 def _final_cache(cfg: SimConfig, final: SimState):
+    """The final cache state: the shared table's CacheState for "cache",
+    the FleetState (converged table + per-proxy counters) for
+    "fleet_cache"."""
     chain = cfg.middleware_chain
-    return final.mw[chain.index("cache")] if "cache" in chain else None
+    for name in ("cache", "fleet_cache"):
+        if name in chain:
+            return final.mw[chain.index(name)]
+    return None
 
 
 def _to_result(cfg: SimConfig, outs: TickOut, final_cache) -> SimResult:

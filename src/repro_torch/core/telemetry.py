@@ -20,7 +20,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.xla import div, fma, reduce_sum
+from repro_torch.core.xla import fma, reduce_sum
 from repro_torch.kernels.common import resolve_device
 
 
@@ -58,6 +58,31 @@ def ewma_series(
         out[s : s + n] = pb * (acc + np.cumsum(alpha * xb / pb, axis=0))
         acc = out[s + n - 1]
     return out
+
+
+def staggered_phases(P: int, period_ticks: int, device=None) -> torch.Tensor:
+    """(P,) int32 ingest phases spreading P proxies evenly over one fast
+    interval.  Independent proxies poll server telemetry on their own
+    clocks; staggering is what makes their smoothed views diverge
+    (fleet mode, §IV-E assumption 1 per proxy)."""
+    p = torch.arange(P, dtype=torch.int32, device=resolve_device(device))
+    return (p * period_ticks) // P
+
+
+def ewma_staggered(
+    views: torch.Tensor,
+    obs: torch.Tensor,
+    tick: int,
+    period_ticks: int,
+    alpha: float,
+) -> torch.Tensor:
+    """Update the (P, m) per-proxy EWMA views: proxy p ingests ``obs``
+    only on its own staggered phase at (host) tick ``tick``; other views
+    keep aging."""
+    P = views.shape[0]
+    phases = staggered_phases(P, period_ticks, views.device)
+    due = phases == int(tick) % period_ticks
+    return torch.where(due[:, None], ewma(views, obs[None, :], alpha), views)
 
 
 def weighted_quantiles(
@@ -137,23 +162,27 @@ def sketch_quantiles(
     return p50, p99
 
 
-def _std_mean(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Population std and mean of an (m,) float32 view, rounded as the
-    reference engine computes them on the CPU: mean = sum · (1/m), then
-    sqrt(sum((x - mean)²) · (1/m)), the sums in XLA's order and each
-    square fused into its add (``xla.reduce_sum``).  The square root is
-    taken in float64 and rounded once, so it is correctly rounded as
-    XLA's is (PyTorch's float32 ``sqrt`` on the CPU is not)."""
-    inv = float(np.float32(1.0 / x.shape[0]))
-    mu = reduce_sum(x) * inv
-    var = reduce_sum(x - mu, squares=True) * inv
-    return torch.sqrt(var.double()).float(), mu
-
-
 def imbalance(L_hat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """B(t) = std(L̂)/(mean(L̂)+ε)  -- the paper's smoothed imbalance."""
-    sd, mu = _std_mean(L_hat)
-    return sd / (mu + eps)
+    """B(t) = std(L̂)/(mean(L̂)+ε)  -- the paper's smoothed imbalance,
+    rounded as the reference's jitted ``imbalance`` on the CPU.
+
+    The sums take XLA's order (:func:`xla.reduce_sum`): mean = sum ·
+    (1/m), std = sqrt(sum((x − mean)²) · (1/m)).  Up to m = 32 XLA folds
+    each square into its add and rounds the denominator twice (mean,
+    then + ε); above 32 it rounds the squares before their windowed sum
+    and fuses the denominator into one ``fma(sum, 1/m, ε)``.  Bit for
+    bit at every m from 1 to 259 (``tests/test_torch_xla_sums.py``).
+    The square root is taken in float64 and rounded once, so it is
+    correctly rounded as XLA's is (PyTorch's float32 ``sqrt`` on the CPU
+    is not)."""
+    m = L_hat.shape[0]
+    inv = float(np.float32(1.0 / m))
+    total = reduce_sum(L_hat)
+    var = reduce_sum(L_hat - total * inv, squares=True) * inv
+    sd = torch.sqrt(var.double()).float()
+    if m <= 32:
+        return sd / (total * inv + eps)
+    return sd / fma(total, inv, eps)
 
 
 CONSENSUS_REDUCERS = ("mean", "median", "max")

@@ -6,14 +6,14 @@ a namespace of ``N`` objects; the key→server map comes from the
 consistent-hash ring, so key skew creates server hotspots.
 
 Random draws: every draw but one goes through the port's threefry
-(:mod:`repro_torch.core.prng`), and the Zipf tables and rate curves are
-rounded as the reference rounds them on the CPU
-(:mod:`repro_torch.core.xla`), so keys, write flags and burst phases
-equal the reference's bit for bit at a given mask.  The exception is the per-tick
-arrival count: the reference draws it with ``jax.random.poisson``,
-which is not reproduced; here it is ``torch.poisson`` with a
-``torch.Generator`` seeded from the workload seed, on the CPU, so the
-counts do not depend on the device.  Engine parity tests therefore feed
+(:mod:`repro_torch.core.prng`), and the Zipf tables, their search and
+the rate curves are rounded and taken as the reference takes them on
+the CPU (:mod:`repro_torch.core.xla`), so keys, write flags and burst
+phases equal the reference's bit for bit at a given mask.  The
+exception is the per-tick arrival count: the reference draws it with
+``jax.random.poisson``, which is not reproduced; here it is
+``torch.poisson`` with a ``torch.Generator`` seeded from the workload
+seed, on the CPU, so the counts do not depend on the device.  Engine parity tests therefore feed
 the reference's realized grids to the port
 (:func:`repro_torch.convert.workload_from_numpy`).
 
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Tuple, Type
+from typing import Any, Dict, NamedTuple, Tuple, Type
 
 import torch
 
@@ -73,6 +73,24 @@ class WorkloadParams:
     @property
     def rng(self) -> torch.Tensor:
         return prng.PRNGKey(self.seed, self.device)
+
+    def make(self, name: str, **overrides) -> Workload:
+        """Build another registered workload under these params -- the
+        composition hook scenarios use.  ``R`` and the device are passed
+        through, so component grids always align."""
+        kw: Dict[str, Any] = dict(
+            T=self.T,
+            m=self.m,
+            seed=self.seed,
+            dt_ms=self.dt_ms,
+            service_ms=self.service_ms,
+            N=self.N,
+            R=self.R,
+            write_frac=self.write_frac,
+            device=self.device,
+        )
+        kw.update(overrides)
+        return make_workload(name, **kw)
 
 
 class WorkloadSpec:
@@ -155,10 +173,9 @@ def _zipf_cdf(N: int, alpha: float) -> torch.Tensor:
 def zipf_cdf(N: int, alpha: float, device=None) -> torch.Tensor:
     """Zipf(alpha) CDF over N ranks in float32, computed on the CPU as
     the reference computes it there (the C library's ``powf``, XLA's
-    orders of the cumulative sum and the sum; bit for bit wherever
-    :func:`xla.reduce_sum` is, e.g. N <= 64 or N = 512, 4096), so the
-    keys drawn from it do not depend on the device; then moved to
-    ``device`` (the card when None)."""
+    orders of the cumulative sum and the sum, bit for bit), so the keys
+    drawn from it do not depend on the device; then moved to ``device``
+    (the card when None)."""
     return _zipf_cdf(N, float(alpha)).to(resolve_device(device))
 
 
@@ -168,7 +185,7 @@ def sample_keys(key, shape, N: int, alpha: float, perm_salt: int = 3):
     if alpha <= 0.0:
         return prng.randint(key, shape, 0, N)
     cdf = zipf_cdf(N, alpha, key.device)
-    ranks = torch.searchsorted(cdf, prng.uniform(key, shape))
+    ranks = xla.searchsorted(cdf, prng.uniform(key, shape))
     return (hash2(ranks, perm_salt) % N).to(torch.int32)
 
 
@@ -185,7 +202,7 @@ def hot_subset_keys(
     """Zipf(alpha) keys over a small hot subset that rotates per epoch
     (each burst is a different job hitting different directories)."""
     cdf = zipf_cdf(subset, alpha, key.device)
-    ranks = torch.searchsorted(cdf, prng.uniform(key, shape))
+    ranks = xla.searchsorted(cdf, prng.uniform(key, shape))
     epochs = epoch_idx[:, None].to(torch.int64)
     mixed = hash2((ranks + subset * epochs) & prng.MASK, salt)
     return (mixed % N).to(torch.int32)

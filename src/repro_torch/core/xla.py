@@ -9,10 +9,15 @@ differently from plain PyTorch:
 * **Division by a scalar.**  XLA divides; PyTorch multiplies by a
   reciprocal in some scalar cases.  :func:`div` always divides.
 * **The order of a sum.**  XLA's CPU backend sums a float32 vector of
-  up to 32 elements left to right, and a longer one in blocks; a
-  cumulative sum is a two-level scan over blocks of 16.  PyTorch sums
+  up to 32 elements left to right, and a longer one in windows of 32
+  with the padding split across both ends; a cumulative sum is a
+  two-level scan over blocks of 16.  PyTorch sums
   in other orders (on the CPU in vector lanes, a cumulative sum in
   float64).  :func:`reduce_sum` and :func:`cumsum` take XLA's orders.
+* **Binary search.**  ``jnp.searchsorted`` bisects in a fixed number
+  of steps; on a table that is not sorted everywhere (a long float32
+  cumulative sum) it finds another index than a lower bound does.
+  :func:`searchsorted` takes jnp's steps.
 * **The C library's float32 math.**  Outside a fused computation XLA's
   CPU backend calls the C library's ``sinf`` and ``powf``, which are
   not correctly rounded and differ from ``torch.sin`` and ``torch.pow``
@@ -90,25 +95,41 @@ def _fold(parts, squares: bool) -> torch.Tensor:
     return acc
 
 
+def _windows(x: torch.Tensor) -> torch.Tensor:
+    """1-D ``x`` (n > 32) as rows of 32: ``32·k − n`` zeros padded,
+    ``pad // 2`` in front and the rest behind, as XLA's tree-reduction
+    rewrite pads the ``reduce-window`` it makes of a long sum."""
+    n = x.shape[0]
+    k = -(-n // 32)
+    pad = 32 * k - n
+    if pad:  # 0.0 + x == x: the pad changes no sum
+        front, back = pad // 2, pad - pad // 2
+        x = torch.cat([x.new_zeros(front), x, x.new_zeros(back)])
+    return x.reshape(k, 32)
+
+
 def reduce_sum(x: torch.Tensor, squares: bool = False) -> torch.Tensor:
-    """``jnp.sum`` of a 1-D float32 tensor in XLA's CPU order: up to 32
-    elements left to right; more as ``k = ceil(n / 32)`` blocks of
-    ``ceil(n / k)``, each summed left to right, and then the k block
-    sums the same way.  Found bit for bit for every n up to 64 and
-    every multiple of 32 tried (up to 65536); other lengths above 64
-    XLA splits otherwise, and there this is only close.  With
-    ``squares`` it is ``jnp.sum(x * x)`` inside a fused computation
+    """``jnp.sum`` of a 1-D float32 tensor in XLA's CPU order.
+
+    Up to 32 elements XLA sums left to right.  A longer sum becomes a
+    ``reduce-window`` of size and stride 32: ``32·k − n`` zeros are
+    padded, ``pad // 2`` of them in front and the rest behind, each
+    window of 32 is summed left to right, and the ``k`` window sums are
+    reduced by the same rule.  This is ``jax.jit(jnp.sum)`` bit for bit
+    at every n from 1 to 300 and at 1000, 4097, 10**4, 65537 and 10**6
+    (``tests/test_torch_xla_sums.py``).
+
+    With ``squares`` it is ``jnp.sum(x * x)`` inside a fused computation
     (``jnp.std``'s squared deviations): up to 32 elements XLA folds each
-    square into its add; in blocks it rounds the squares first (found
-    for n = 64).  One op per column: a few dozen small ops on the card
-    and no host read."""
+    square into its add; above 32 it rounds the squares first and sums
+    them by the windows above.  One op per column: a few dozen small ops
+    on the card and no host read."""
     n = x.shape[0]
     if n <= 32:
         return _fold(x.unbind(0), squares)
     if squares:
         x = x * x
-    k = -(-n // 32)
-    return reduce_sum(_fold(_blocks(x, -(-n // k)).unbind(1), False))
+    return reduce_sum(_fold(_windows(x).unbind(1), False))
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -126,6 +147,27 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
         prefix = cumsum(inb[:, -1])
         inb = torch.cat([inb[:1], inb[1:] + prefix[:-1, None]])
     return inb.reshape(-1)[:n]
+
+
+def searchsorted(table: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(table, query)`` (side "left") as jnp computes
+    it: a bisection of ``ceil(log2(n + 1))`` fixed steps from
+    ``(low, high) = (0, n)``, each step comparing ``query <=
+    table[(low + high) // 2]``, returning ``high``.  On a sorted table
+    that is the lower bound ``torch.searchsorted`` gives; a float32
+    cumulative table of 10**6 Zipf weights is not sorted everywhere (its
+    rounding steps back in places), and there only the same bisection
+    gives the same index.  Returns int64, shaped as ``query``."""
+    n = table.shape[0]
+    low = torch.zeros(query.shape, dtype=torch.int64, device=query.device)
+    high = torch.full(query.shape, n, dtype=torch.int64,
+                      device=query.device)
+    for _ in range(int(np.ceil(np.log2(n + 1)))):
+        mid = (low + high) // 2
+        left = query <= table[mid.clamp(max=n - 1)]
+        low = torch.where(left, low, mid)
+        high = torch.where(left, mid, high)
+    return high
 
 
 @functools.lru_cache(maxsize=None)

@@ -168,9 +168,15 @@ extern "C" int route_select_launch(const void* feas, const void* sampled,
 // view L_hat + sent, where sent counts the tick's own sends of the waves
 // before it, so the waves run in order, and a tick stays in one block:
 // only a block barrier makes wave g's pin writes visible to wave g + 1.
+// Under fleet routing (the reference's fleet_routing) wave g is one
+// proxy's and routes on that proxy's own view alone: base points at
+// (G, m) views, base_stride is m and accumulate is 0, so the view is
+// base[g] and no sends are shared; sent still counts every wave's sends
+// for the arrivals.  Otherwise base is L_hat, base_stride 0 and
+// accumulate 1.
 //
 // Per wave:
-//   1. the view L_hat + sent in shared memory (and in views[g]);
+//   1. the view base[g] (+ sent) in shared memory (and in views[g]);
 //   2. per row: route_select's midas test and argmin, exactly as
 //      route_select_kernel does it (strict '<', slot 0 when no slot is
 //      eligible, ids outside [0, m) read 0), with sampled = rank < d
@@ -212,7 +218,7 @@ struct TickArgs {
   const int32_t* feas;     // (G, Rg, d_max)
   const int8_t* rank;      // (G, Rg, d_max)
   const float* tie;        // (G, Rg, d_max)
-  const float* L_hat;      // (m,)
+  const float* base;       // (m,) L_hat, or (G, m) per-wave views
   const float* p50;        // (m,)
   const int32_t* d;        // () knobs and the tick clock
   const float* delta_l;
@@ -235,6 +241,8 @@ struct TickArgs {
   float* eligible;         // ()
   int32_t* hist_idx_out;   // ()
   int G, Rg, d_max, m, N, W;
+  int base_stride;         // 0 (one shared view) or m (a view a wave)
+  int accumulate;          // 1: add the earlier waves' sends to the view
 };
 
 constexpr uint8_t kWant = 1, kAllowed = 2, kMask = 4;
@@ -285,8 +293,9 @@ __global__ void route_tick_kernel(TickArgs a) {
 
   for (int g = 0; g < a.G; ++g) {
     // 1. the view
+    const float* base = a.base + static_cast<size_t>(g) * a.base_stride;
     for (int j = tid; j < a.m; j += nthreads) {
-      const float v = a.L_hat[j] + s_sent[j];
+      const float v = a.accumulate ? base[j] + s_sent[j] : base[j];
       s_view[j] = v;
       a.views[static_cast<size_t>(g) * a.m + j] = v;
     }
@@ -424,23 +433,24 @@ __global__ void route_tick_kernel(TickArgs a) {
 }  // namespace
 
 // C interface for ctypes: device pointers in TickArgs order, then the
-// sizes and the stream.  Returns the cudaError_t of the launch.
+// sizes, the view's stride and accumulate flag, and the stream.  Returns the cudaError_t of the launch.
 extern "C" int route_tick_launch(
     const void* keys, const void* mask, const void* feas, const void* rank,
-    const void* tie, const void* L_hat, const void* p50, const void* d,
+    const void* tie, const void* base, const void* p50, const void* d,
     const void* delta_l, const void* delta_t, const void* f_max,
     const void* pin_ms, const void* now_ms, void* pin_server,
     void* pin_expiry, void* steer_hist, void* elig_hist,
     const void* hist_idx, void* assign, void* views, void* arrivals,
     void* steered, void* eligible, void* hist_idx_out, int G, int Rg,
-    int d_max, int m, int N, int W, void* stream) {
+    int d_max, int m, int N, int W, int base_stride, int accumulate,
+    void* stream) {
   TickArgs a;
   a.keys = static_cast<const int64_t*>(keys);
   a.mask = static_cast<const uint8_t*>(mask);
   a.feas = static_cast<const int32_t*>(feas);
   a.rank = static_cast<const int8_t*>(rank);
   a.tie = static_cast<const float*>(tie);
-  a.L_hat = static_cast<const float*>(L_hat);
+  a.base = static_cast<const float*>(base);
   a.p50 = static_cast<const float*>(p50);
   a.d = static_cast<const int32_t*>(d);
   a.delta_l = static_cast<const float*>(delta_l);
@@ -465,6 +475,8 @@ extern "C" int route_tick_launch(
   a.m = m;
   a.N = N;
   a.W = W;
+  a.base_stride = base_stride;
+  a.accumulate = accumulate;
   int threads = (Rg + 31) / 32 * 32;
   threads = threads < 32 ? 32 : threads;
   threads = threads > kTickMaxThreads ? kTickMaxThreads : threads;

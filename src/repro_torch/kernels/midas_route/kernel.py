@@ -6,7 +6,8 @@ kernel ``repro/kernels/midas_route/kernel.py:route_select``
 of the midas policy in one launch: route_select's midas test for each of
 the tick's G waves, with the pins, the leaky bucket and the history ring
 of ``repro/core/policies/midas.py:route_midas`` between them, bit for
-bit the waves one at a time.  ``dispatch_fused`` and ``dispatch_candidates``
+bit the waves one at a time, and under fleet routing each wave on its
+own proxy's view.  ``dispatch_fused`` and ``dispatch_candidates``
 (both in ``csrc/midas_dispatch.cu``) replace the two passes of its
 ``midas_dispatch``: ``_body`` (``f_max >= 1``) and ``_cand_body``
 (pass 1 of ``f_max < 1``); ``dispatch_steer`` (the same source) is
@@ -61,7 +62,7 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.route_select_launch.restype = ctypes.c_int
         lib.route_tick_launch.argtypes = (
-            [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 24 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.route_tick_launch.restype = ctypes.c_int
     return lib
 
@@ -178,8 +179,11 @@ def route_tick(
 
     keys (G, Rg) int64 in [0, N), mask (G, Rg) bool, feas (G, Rg, d_max)
     int32, rank (G, Rg, d_max) int8 and tie (G, Rg, d_max) float32 are
-    the waves and their draws; L_hat and p50 (m,) float32 the stale
-    telemetry (wave g routes on L_hat plus the sends of waves 0..g-1);
+    the waves and their draws; p50 (m,) float32 the stale p50
+    telemetry and L_hat the stale queue view: (m,) float32, one view
+    that wave g routes on plus the sends of waves 0..g-1, or (G, m),
+    fleet routing's per-wave views, wave g routing on row g alone (the
+    kernel's base views: no sends of earlier waves added);
     pin_server (N,) int32, pin_expiry (N,) float32, steer_hist and
     elig_hist (W,) float32 and hist_idx () int32 the policy state; the
     knobs and the tick clock are 0-d tensors (d int32, the rest float32).
@@ -193,7 +197,7 @@ def route_tick(
     if feas.dim() != 3:
         raise ValueError(f"feas must be (G, Rg, d_max), got {feas.shape}")
     G, Rg, d_max = feas.shape
-    m, N, W = L_hat.numel(), pin_server.numel(), steer_hist.numel()
+    m, N, W = p50.numel(), pin_server.numel(), steer_hist.numel()
     if not 1 <= d_max <= MAX_D:
         raise ValueError(f"d_max must be in [1, {MAX_D}], got {d_max}")
     if not 1 <= m <= MAX_M:
@@ -211,7 +215,8 @@ def route_tick(
         ("feas", feas, torch.int32, (G, Rg, d_max)),
         ("rank", rank, torch.int8, (G, Rg, d_max)),
         ("tie", tie, torch.float32, (G, Rg, d_max)),
-        ("L_hat", L_hat, torch.float32, (m,)),
+        ("L_hat", L_hat, torch.float32,
+         (G, m) if L_hat.dim() == 2 else (m,)),
         ("p50", p50, torch.float32, (m,)),
         ("pin_server", pin_server, torch.int32, (N,)),
         ("pin_expiry", pin_expiry, torch.float32, (N,)),
@@ -226,6 +231,9 @@ def route_tick(
         ("now_ms", now_ms, torch.float32, ()),
     ):
         _check(name, t, dtype, shape, dev)
+    # the base view's stride (0: one view for every wave) and whether
+    # the earlier waves' sends are added to it
+    base_stride, accumulate = (m, 0) if L_hat.dim() == 2 else (0, 1)
     if dev.type != "cuda":
         raise ValueError(
             f"the CUDA route_tick needs tensors on a CUDA device, got "
@@ -245,7 +253,7 @@ def route_tick(
             f_max, pin_ms, now_ms, pin_server, pin_expiry, steer_hist,
             elig_hist, hist_idx, assign, views, arrivals, steered,
             eligible, new_idx,
-        )), G, Rg, d_max, m, N, W, _stream(dev))
+        )), G, Rg, d_max, m, N, W, base_stride, accumulate, _stream(dev))
     if err != 0:
         raise RuntimeError(f"route_tick launch failed: cudaError {err}")
     route_tick.launches += 1

@@ -11,9 +11,9 @@ targets, as ``tests/test_redteam.py`` runs it).  That trace no longer
 makes the hysteresis controller flip 8 times in a slow window under
 the installed jax (7 flips a minute, the reason its budget test fails
 in the reference too), so the guard does not trip there and on equals
-off; the trip is exercised on the reference-realized ``adversarial``
-grid, where both packages freeze the knobs.  Every ``SimResult``
-field is held bit for bit.
+off; the trip is exercised on the ``adversarial`` grid, realized by the
+reference and by the port, where both packages freeze the knobs.  Every
+``SimResult`` field is held bit for bit.
 """
 
 import numpy as np
@@ -21,12 +21,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
 from repro.core import SimConfig as JConfig  # noqa: E402
 from repro.core import make_workload as jmake  # noqa: E402
 from repro.core import simulate as jsimulate  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import controllers as tctrl  # noqa: E402
 from repro_torch.core import sim as tsim  # noqa: E402
+from repro_torch.core import workloads as tworkloads  # noqa: E402
 
 FIELDS = ("queue_timeline", "arrivals", "lat_pred", "d_timeline",
           "delta_l_timeline", "f_max_timeline", "pressure", "steered",
@@ -108,19 +110,33 @@ def _guarded_run(grid, guard, light):
     return want, got, trips
 
 
-@pytest.mark.parametrize("grid", ("redteam", "adversarial"))
+def _reference_workload(wl):
+    """A port-realized grid as the reference's ``Workload``."""
+    from repro.core.workloads import Workload as JWorkload
+
+    return JWorkload(keys=jnp.asarray(wl.keys.numpy()),
+                     mask=jnp.asarray(wl.mask.numpy()),
+                     is_write=jnp.asarray(wl.is_write.numpy()),
+                     name=wl.name, N=wl.N)
+
+
+@pytest.mark.parametrize("grid", ("redteam", "adversarial",
+                                  "adversarial_port"))
 def test_guard_on_and_off_match_live_reference(grid):
     light = _port_workload(jmake("light", T=1200, m=M, seed=99, N=N))
     if grid == "redteam":
         wl = jmake("trace_replay", T=T, m=M, seed=0, N=N,
                    trace="tests/data/redteam_worst.npz", loop=False)
-    else:
+    elif grid == "adversarial":
         wl = jmake("adversarial", T=T, m=M, seed=0, N=N)
+    else:  # the same spec realized by the port (its own Poisson counts)
+        wl = _reference_workload(tworkloads.make_workload(
+            "adversarial", T=T, m=M, seed=0, N=N, device="cpu"))
     won, on, trips = _guarded_run(wl, True, light)
     woff, off, _ = _guarded_run(wl, False, light)
     tripped = not np.array_equal(won.d_timeline, woff.d_timeline)
     assert tripped == (trips > 0)  # the port trips where the reference does
-    if grid == "adversarial":
+    if grid != "redteam":
         assert trips > 0
         stats = [tctrl.trajectory_stats(r.d_timeline, r.delta_l_timeline,
                                         r.f_max_timeline, r.pressure, 50.0)

@@ -244,6 +244,40 @@ def test_cuda_route_tick_matches_the_waves_one_at_a_time():
 
 
 @pytest.mark.requires_cuda
+def test_cuda_route_tick_fleet_views_match_the_waves_one_at_a_time():
+    """Fleet routing: wave g routes on the (G, m) base view's row g
+    alone, with no sends shared within the tick; the kernel's base-view
+    mode against the plain loop fed the same views, in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import sim as tsim
+    from repro_torch.kernels.midas_route import kernel
+
+    steered = 0
+    for case in TICK_CASES:
+        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = \
+            _tick_case(*case)
+        G, m = keys.shape[0], st.L_hat.shape[0]
+        rng = np.random.default_rng(case[0] + 100)
+        views = np.round(rng.random((G, m)) * 6, 1).astype(np.float32)
+        for g in range(G):  # each proxy sees its own hot servers
+            views[g, rng.integers(0, m, 4)] += 30.0
+        views = torch.as_tensor(views).cuda()
+        out = {}
+        for impl in ("ref", "cuda"):
+            s = st._replace(policy=_clone(st.policy))
+            before = kernel.route_tick.launches
+            out[impl] = tsim._route_waves(cfg, policy, s, knobs, now, keys,
+                                          mask, feas, draws, impl, consts,
+                                          views)
+            assert kernel.route_tick.launches == before + (impl == "cuda")
+        torch.cuda.synchronize()
+        _assert_ticks_equal(out["ref"], out["cuda"], case)
+        steered += int(out["cuda"][1].stats.steered)
+    assert steered > 0
+
+
+@pytest.mark.requires_cuda
 def test_cuda_route_tick_in_a_cuda_graph():
     """Captured once, the tick replays the plain loop's result from the
     same state (restored before each replay: the kernel updates the pin

@@ -89,7 +89,7 @@ def _constructors():
     entry point that builds tensors."""
     from repro_torch import convert, models
     from repro_torch.config import RunConfig, get_smoke_arch
-    from repro_torch.core import hashring, prng, telemetry
+    from repro_torch.core import fleet, hashring, prng, telemetry
     from repro_torch.core.controllers import base as controllers
     from repro_torch.core.policies import midas
     from repro_torch.core.workloads import base as workloads
@@ -104,6 +104,12 @@ def _constructors():
         ("make_sketch", lambda: telemetry.make_sketch(8)),
         ("init_knobs", lambda: controllers.init_knobs(2.0)),
         ("init_midas", lambda: midas.init_midas(16, 4)),
+        ("init_fleet", lambda: fleet.init_fleet(16, 2, 1)),
+        ("staggered_phases", lambda: telemetry.staggered_phases(8, 5)),
+        ("make_workload[rename_storm]",
+         lambda: workloads.make_workload("rename_storm", T=4, m=8, N=64)),
+        ("make_workload[trace_replay]",
+         lambda: workloads.make_workload("trace_replay", T=4, m=8, N=64)),
         ("zipf_cdf", lambda: workloads.zipf_cdf(16, 1.1)),
         ("init_params", lambda: models.init_params(cfg)),
         ("init_decode_cache",

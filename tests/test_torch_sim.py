@@ -148,10 +148,19 @@ def _assert_trees_match(want, got):
 
 
 def test_unported_choices_raise_naming_the_roadmap_item():
-    for kw in (dict(fleet_routing=True), dict(faults=("crash",)),
-               dict(unroll_waves=True), dict(middleware=("fleet_cache",))):
+    for kw in (dict(faults=("crash",)), dict(unroll_waves=True),
+               dict(middleware=("fleet_cache",), faults=("crash",)),
+               dict(fleet_routing=True, unroll_waves=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsim.SimConfig(**kw)
+    # the fleet is ported: its choices construct
+    for kw in (dict(fleet_routing=True), dict(middleware=("fleet_cache",)),
+               dict(middleware=("fleet_cache",), fleet_routing=True,
+                    gossip_ms=100.0),
+               dict(middleware=("fleet_cache",), gossip_ms=400.0,
+                    cache_mode="ttl_per_key")):
+        cfg = tsim.SimConfig(**kw)
+        assert cfg.fleet_routing == kw.get("fleet_routing", False)
     with pytest.raises(ValueError, match="available: chbl, hash, jsq"):
         tsim.SimConfig(policy="least_loaded")
     with pytest.raises(ValueError, match="available: no_margin"):

@@ -176,10 +176,13 @@ def _cpu_args(G_=2, Rg=8, m=8, d_max=4, n=64, w=3):
 
 def test_route_tick_on_cpu_tensors_raises():
     args, knobs = _cpu_args()
+    fleet = list(args)  # fleet routing's (G, m) per-wave views
+    fleet[5] = args[5].expand(args[0].shape[0], -1).contiguous()
     before = kernel.route_tick.launches
     for fn in (kernel.route_tick, ops.route_tick):
-        with pytest.raises(ValueError, match="CUDA device"):
-            fn(*args, **knobs)
+        for a in (args, fleet):
+            with pytest.raises(ValueError, match="CUDA device"):
+                fn(*a, **knobs)
     assert kernel.route_tick.launches == before
 
 
@@ -207,6 +210,8 @@ def _bad(name):
         knobs["d"] = knobs["d"].float()
     elif name == "window":
         args[9], args[10] = torch.zeros(0), torch.zeros(0)
+    elif name == "fleet views shape":  # (G, m) views, one row short
+        args[5] = args[5].expand(args[0].shape[0] - 1, -1).contiguous()
     return args, knobs
 
 
@@ -215,7 +220,7 @@ def _bad(name):
     ("keys dtype", "keys has dtype"), ("mask shape", "mask has shape"),
     ("tie contiguous", "tie must be contiguous"), ("feas rank", "feas must"),
     ("knob shape", "f_max has shape"), ("d dtype", "d has dtype"),
-    ("window", "window"),
+    ("window", "window"), ("fleet views shape", "L_hat has shape"),
 ])
 def test_route_tick_checks_its_inputs_before_any_launch(name, match):
     args, knobs = _bad(name)

@@ -103,7 +103,8 @@ def test_light_workload_and_registry():
     jl = jmake("light", T=400, m=M, seed=99, N=N)
     np.testing.assert_array_equal(np.asarray(jl.keys), wl.keys.numpy())
     assert workloads.available() == (
-        "bursty", "diurnal", "light", "periodic", "skewed", "storm",
-        "uniform_heavy")
-    with pytest.raises(ValueError, match="available: bursty, diurnal"):
-        workloads.make_workload("flash_crowd", T=4, m=M, device="cpu")
+        "adversarial", "bursty", "diurnal", "flash_crowd", "job_startup",
+        "light", "multi_tenant", "periodic", "rename_storm", "skewed",
+        "storm", "trace_replay", "uniform_heavy")
+    with pytest.raises(ValueError, match="available: adversarial, bursty"):
+        workloads.make_workload("checkpoint_storm", T=4, m=M, device="cpu")
