@@ -28,6 +28,10 @@ Qwen3-MoE-235B-A22B.  Phases:
    shape, with repeated keys, live and expired pins, binding and free
    budgets, ragged masks and a wrapping history ring, with one shared
    view and with per-wave base views (fleet routing), timed in both;
+   ``route_tick`` and ``route_select`` (power_of_d, chbl, midas) on the
+   member-aware feasible sets of a membership fault (m = 64 with server
+   0 dead; m = 4 with three dead, every row repeating its live server),
+   bitwise;
    ``flash_attention`` also at Qwen3-MoE's prefill shape, with its bound
    on the tensor cores and the CUDA cores' beside it, and bitwise equal
    on a repeated call; ``dispatch_steer`` against
@@ -42,15 +46,16 @@ Qwen3-MoE-235B-A22B.  Phases:
    ticks); then 400 ticks of ``power_of_d`` at the same constants,
    counting one ``route_select`` launch a wave and equal bit for bit to
    its plain run;
-4. the midas run with the plain wave loop in place of the kernel, which
-   must give the same timelines, dV and final state bit for bit;
+4. the midas run's first 600 ticks with the plain wave loop in place of
+   the kernel, which must give the same timelines, dV and final state
+   bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
 10. (run right after phase 5) the evaluation plane at phase 3's
-   constants and grid, 200 ticks each: ``chbl`` (one ``route_select``
-   launch a wave, 1600), and midas + cache under the ``no_margin``,
+   constants and grid, 150 ticks each: ``chbl`` (one ``route_select``
+   launch a wave, 1200), and midas + cache under the ``no_margin``,
    ``no_pin`` and ``no_bucket`` ablations, the ``aimd``,
    ``deadband_pid`` and ``static`` controllers and the oscillation
-   guard (one ``route_tick`` launch a tick, 200 each), every one bit for
+   guard (one ``route_tick`` launch a tick, 150 each), every one bit for
    bit its plain run; ``round_robin``, ``rr_request``, ``uniform`` and
    ``jsq``, which launch no kernel; phase 5's card-vs-CPU run for every
    new policy and control law, and a 1200-tick guard run whose trips
@@ -72,6 +77,28 @@ Qwen3-MoE-235B-A22B.  Phases:
    run); the card against the CPU at m = 8, T = 200 on CPU-realized
    grids of the E9 scenarios, ``multi_tenant``, ``adversarial`` and
    ``trace_replay``, over the nine (gossip, cache mode) cells of E9;
+12. (run right after phase 11) the fault layer: E12's scenario (the
+   first 400 ticks of phase 3's ``bursty`` grid) at phase 11's
+   constants under E13's three compound programs applied together
+   (a checkpoint storm with a server crash, rolling brownouts, a crash
+   whose detection cascades into a fleet-wide gossip partition),
+   retimed to 400 ticks, with warmup: exactly 400 ``route_tick``
+   launches, bitwise its plain run on every output and the whole final
+   ``FleetState``; the schedule's two epoch flips, remap invalidation on
+   exactly those ticks; no arrivals to the dead server once detected
+   (past any pin made before detection) and its queue frozen until it
+   rejoins; ``avail`` below ``AVAIL_FULL`` on exactly the degraded
+   ticks; the per-proxy counters summing to the aggregates; ticks/s and
+   kernels a tick (torch.profiler, ticks 150-200 inside the fault
+   window and 350-400 after it); 200 ticks of ``power_of_d`` under the
+   same program (exactly 1600 ``route_select`` launches, bitwise); zero
+   cost when off (``faults=()`` and a benign event equal ``None`` bit
+   for bit over 100 ticks) and ``proxy_join`` bitwise its plain run;
+   the card against the CPU over E12's six fault blocks, each under one
+   of three (policy, controller) cells in turn, at m = 8 (T = 150, t0
+   and durations / 6);
+   E12's crash headline at its own T = 900, seeds 0 and 1, printed as a
+   JSON line;
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
    8 requests of a 512-token prompt and 32 greedy decode steps behind a
@@ -82,9 +109,9 @@ Qwen3-MoE-235B-A22B.  Phases:
    same run on the CPU (falcon-mamba's, the MoE models' and jamba's
    tokens under the margin rule of phase 8, and their teacher-forced
    logits, on a float32 cache, within the CPU tests' 1e-4);
-8. serving at falcon-mamba-7b's full width and depth (64 Mamba-1
-   layers, d_model 4096, d_inner 8192, d_state 16; random weights from
-   seed 0, 29.1 GB in float32) with phase 6's traffic, counting
+8. serving at falcon-mamba-7b's full width (d_model 4096, d_inner
+   8192, d_state 16) cut to 32 of its 64 Mamba-1 layers (random weights
+   from seed 0, 15.6 GB in float32) with phase 6's traffic, counting
    ``chunk_scan``'s launches (one per layer and 128-token chunk of
    each prompt; decode is plain PyTorch, as in the reference); the
    same run with the plain scan gives the same tokens wherever the
@@ -129,7 +156,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FULL = dict(m=64, N=1_000_000, V=64, d_max=4, n_groups=8)
 T_FULL, R_FULL, SEED = 1200, 512, 0
-PARITY_TICKS = 1200  # phase 4 compares the whole horizon
+PARITY_TICKS = 600  # phase 4 compares the first half of the horizon
 POD_TICKS = 400  # the power_of_d run of phase 3
 PROFILE_LEAD, PROFILE_TICKS = 400, 50  # phase 3's kernels-a-tick window
 REPLACES = "src/repro/kernels/midas_route/kernel.py:319"
@@ -151,6 +178,9 @@ N_TIMED = 1000  # back-to-back calls per host-side timing
 N_GRAPH = 200  # calls per CUDA graph for device timing
 # MoE serving (phase 9): Qwen3-MoE-235B-A22B at full width, depth cut
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+# SSM serving (phase 8): falcon-mamba-7b at full width, depth cut in half
+# for time
+SSM_ARCH, SSM_LAYERS = "falcon-mamba-7b", 32
 MOE_FUSED_REQUESTS = 2  # the f_max = 1 variant's run
 W_TOL = 1e-6  # dispatch weights, kernel vs plain (absolute)
 
@@ -348,15 +378,18 @@ TICK_CASES = [(1, 0.3, 40), (2, 0.3, 8), (3, 1.0, 40), (4, 1.0, 8),
               (5, 0.3, 40), (6, 1.0, 40)]
 
 
-def tick_case(torch, np, sim, seed, f_max, pool):
+def tick_case(torch, np, sim, seed, f_max, pool, m=None, member=None):
     """One tick's engine inputs on the card, made with numpy: a ragged
     mask, live and expired pins on the key pool, integer histories and a
-    few hot servers (so rows are eligible and steer)."""
-    from repro_torch.core import hashring, policies, prng
+    few hot servers (so rows are eligible and steer).  With ``member``
+    ((m,) bool) the feasible sets are a membership fault's
+    (:func:`member_feasible`)."""
+    from repro_torch.core import policies, prng
     from repro_torch.core.controllers.base import Knobs
     from repro_torch.core.policies.midas import MidasState
 
-    G, Rg, m, d_max, N = TICK_SHAPE
+    G, Rg, m_full, d_max, N = TICK_SHAPE
+    m = m_full if m is None else m
     rng = np.random.default_rng(seed)
 
     def t(x):
@@ -365,7 +398,6 @@ def tick_case(torch, np, sim, seed, f_max, pool):
     keypool = rng.choice(N, pool, replace=False)
     keys = t(keypool[rng.integers(0, pool, (G, Rg))]).long()
     mask = t(rng.random((G, Rg)) < 0.85)
-    ring = hashring.make_ring(m, FULL["V"], device="cuda")
     policy = policies.get("midas")
     draws = policy.draws(prng.fold_in(prng.PRNGKey(seed, "cuda")[None],
                                       torch.arange(G, device="cuda")),
@@ -378,7 +410,7 @@ def tick_case(torch, np, sim, seed, f_max, pool):
     steer = rng.integers(0, 4, TICK_W).astype(np.float32)
     L_hat = np.round(rng.random(m) * 6, 1).astype(np.float32)
     L_hat[rng.integers(0, m, 4)] += 30.0
-    cfg = sim.SimConfig(policy="midas", **FULL)
+    cfg = sim.SimConfig(policy="midas", **dict(FULL, m=m))
     st = sim.init_state(cfg, device="cuda")._replace(
         L_hat=t(L_hat), p50_hat=t((rng.random(m) * 300).astype(np.float32)),
         policy=MidasState(
@@ -394,7 +426,26 @@ def tick_case(torch, np, sim, seed, f_max, pool):
                          torch.ones((), device="cuda"),
                          torch.ones(m, device="cuda"))
     return (cfg, policy, st, knobs, t(np.float32(now)), keys, mask,
-            hashring.feasible_set(ring, keys, d_max), draws, consts)
+            member_feasible(torch, np, keys, m, d_max, member), draws,
+            consts)
+
+
+def member_feasible(torch, np, keys, m, d_max, member=None):
+    """Feasible sets of ``keys`` on the card: member-free, or (``member``:
+    (m,) bool) those the fault layer gathers in a membership epoch, at
+    its scan width; with fewer live servers than d_max every row repeats
+    its one live server."""
+    from repro_torch.core import hashring
+    from repro_torch.core.faults import base as faults_base
+
+    ring = hashring.make_ring(m, FULL["V"], device="cuda")
+    if member is None:
+        return hashring.feasible_set(ring, keys, d_max)
+    member = np.asarray(member, bool)
+    return hashring.feasible_set(
+        ring, keys, d_max,
+        scan_width=faults_base._scan_width(m, FULL["V"], member[None]),
+        member=torch.as_tensor(member).cuda())
 
 
 def fleet_views(torch, np, seed):
@@ -432,32 +483,38 @@ def tick_bytes(np, keys, W, changed) -> int:
     return reads + writes
 
 
+def tick_both(torch, sim, case, what, views=None):
+    """One tick's waves through the plain loop and through route_tick,
+    each from its own copy of the state; every output and the policy
+    state must be equal bit for bit.  Returns the kernel's TickRoute."""
+    cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+    out = {}
+    for impl in ("ref", "cuda"):
+        s = st._replace(policy=clone(st.policy))
+        out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys, mask,
+                                     feas, draws, impl, consts, views)
+    torch.cuda.synchronize()
+    (wps, wt), (gps, gt) = out["ref"], out["cuda"]
+    pairs = [("assign", wt.assign, gt.assign),
+             ("arrivals", wt.arrivals, gt.arrivals)]
+    pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
+              for f in ("steered", "eligible", "dV")]
+    pairs += [(f, getattr(wps, f), getattr(gps, f)) for f in wps._fields]
+    for name, w, g in pairs:
+        check(w.dtype == g.dtype and torch.equal(w, g),
+              f"route_tick {what}: {name} differs from the waves one at a "
+              f"time")
+    return gt
+
+
 def phase_route_tick(torch, np, sim, kernel):
     """route_tick against the engine's waves one at a time, bitwise on
     every output and on the policy state; then timed at the engine's
     shape."""
-    fields = ("steered", "eligible", "dV")
     steered = eligible = binds = 0
     for seed, f_max, pool in TICK_CASES:
         case = tick_case(torch, np, sim, seed, f_max, pool)
-        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
-        out = {}
-        for impl in ("ref", "cuda"):
-            s = st._replace(policy=clone(st.policy))
-            out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys,
-                                         mask, feas, draws, impl, consts)
-        torch.cuda.synchronize()
-        (wps, wt), (gps, gt) = out["ref"], out["cuda"]
-        pairs = [("assign", wt.assign, gt.assign),
-                 ("arrivals", wt.arrivals, gt.arrivals)]
-        pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
-                  for f in fields]
-        pairs += [(f, getattr(wps, f), getattr(gps, f))
-                  for f in wps._fields]
-        for name, w, g in pairs:
-            check(w.dtype == g.dtype and torch.equal(w, g),
-                  f"route_tick {(seed, f_max, pool)}: {name} differs from "
-                  f"the waves one at a time")
+        gt = tick_both(torch, sim, case, (seed, f_max, pool))
         n_st, n_el = int(gt.stats.steered), int(gt.stats.eligible)
         steered, eligible = steered + n_st, eligible + n_el
         binds += int(n_st < n_el)
@@ -474,26 +531,8 @@ def phase_route_tick(torch, np, sim, kernel):
     fleet_steered = 0
     for seed, f_max, pool in TICK_CASES:
         case = tick_case(torch, np, sim, seed, f_max, pool)
-        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
-        views = fleet_views(torch, np, seed)
-        out = {}
-        for impl in ("ref", "cuda"):
-            s = st._replace(policy=clone(st.policy))
-            out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys,
-                                         mask, feas, draws, impl, consts,
-                                         views)
-        torch.cuda.synchronize()
-        (wps, wt), (gps, gt) = out["ref"], out["cuda"]
-        pairs = [("assign", wt.assign, gt.assign),
-                 ("arrivals", wt.arrivals, gt.arrivals)]
-        pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
-                  for f in fields]
-        pairs += [(f, getattr(wps, f), getattr(gps, f))
-                  for f in wps._fields]
-        for name, w, g in pairs:
-            check(w.dtype == g.dtype and torch.equal(w, g),
-                  f"route_tick fleet views {(seed, f_max, pool)}: {name} "
-                  f"differs from the waves one at a time")
+        gt = tick_both(torch, sim, case, f"fleet views {(seed, f_max, pool)}",
+                       fleet_views(torch, np, seed))
         fleet_steered += int(gt.stats.steered)
     check(fleet_steered > 0, "route_tick's fleet-view cases never steered")
     say(f"[2] route_tick with per-wave base views (fleet routing: wave g "
@@ -549,6 +588,69 @@ def phase_route_tick(torch, np, sim, kernel):
         f"kernel {row['fleet_ms'] * 1e3:.3f} us (one shared view: "
         f"{row['ms'] * 1e3:.3f} us)")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (continued): the route kernels on a membership fault's sets
+# ---------------------------------------------------------------------------
+
+# (m, dead servers): phase 3's shape with server 0 dead, and m = 4 with
+# three dead, where every row repeats its one live server
+MEMBER_CASES = [(64, (0,)), (4, (0, 1, 3))]
+MEMBER_ROWS = 512  # route_select rows a case
+
+
+def phase_member_route(torch, np, sim, kernel, ref):
+    """route_tick and route_select fed the feasible sets of a membership
+    fault (``feasible_set(member=)``, repeated entries included), each
+    bitwise its plain version."""
+    from repro_torch.core.faults import base as faults_base
+
+    for m, dead in MEMBER_CASES:
+        member = np.ones(m, bool)
+        member[list(dead)] = False
+        live = torch.as_tensor(member).cuda()
+        steered = repeated = 0
+        for seed, f_max, pool in TICK_CASES[:4]:
+            case = tick_case(torch, np, sim, seed, f_max, pool, m=m,
+                             member=member)
+            feas = case[7]
+            check(bool(live[feas.long()].all()),
+                  f"member-aware sets at m={m} hold a dead server")
+            repeated += int((feas[..., 1:] == feas[..., :1]).any(-1)
+                            .sum())
+            gt = tick_both(torch, sim, case, f"on member-aware sets (m={m}, "
+                           f"dead {dead}, seed {seed})")
+            steered += int(gt.stats.steered)
+        if m - len(dead) < TICK_SHAPE[3]:
+            check(repeated == TICK_SHAPE[0] * TICK_SHAPE[1] * 4,
+                  f"m={m}: not every row repeats its live server")
+        for variant in range(3):
+            feas, load, p50, sampled, tie, scal = route_inputs(
+                torch, MEMBER_ROWS, m, 4, seed=1000 + m + variant)
+            g = torch.Generator(device="cuda").manual_seed(variant)
+            keys = torch.randint(0, FULL["N"], (MEMBER_ROWS,), generator=g,
+                                 device="cuda")
+            feas = member_feasible(torch, np, keys, m, 4, member)
+            for mode in ("power_of_d", "chbl", "midas"):
+                args = (feas, load, p50, sampled, tie, scal)
+                want = ref.route_select(*args, mode=mode)
+                got = kernel.route_select(*args, mode=mode)
+                torch.cuda.synchronize()
+                for w, k in zip(want, got):
+                    check(w.dtype == k.dtype and torch.equal(w, k),
+                          f"route_select {mode} on member-aware sets "
+                          f"(m={m}, dead {dead}) differs")
+                check(bool(live[got[0].long()].all()),
+                      f"route_select {mode} chose a dead server")
+        width = faults_base._scan_width(m, FULL["V"], member[None])
+        say(f"[2] member-aware feasible sets, m={m} with servers {dead} "
+            f"dead (scan width {width}, {repeated} rows with a repeated "
+            f"entry): route_tick on 4 ticks equal to the "
+            f"waves one at a time on every output and the policy state "
+            f"({steered} steered); route_select power_of_d, chbl and midas "
+            f"on {MEMBER_ROWS} rows x 3 input sets bitwise, never a dead "
+            f"server")
 
 
 # ---------------------------------------------------------------------------
@@ -1285,7 +1387,7 @@ def phase_small(np, core):
 # the guard, E1/E2
 # ---------------------------------------------------------------------------
 
-PLANE_TICKS = 200  # each phase-10 run at phase 3's constants
+PLANE_TICKS = 150  # each phase-10 run at phase 3's constants
 PLANE_VARIANTS = (  # midas + cache under each, through route_tick
     dict(ablate="no_margin"), dict(ablate="no_pin"),
     dict(ablate="no_bucket"), dict(controller="aimd"),
@@ -1603,6 +1705,383 @@ def phase_fleet(torch, np, core, sim, counters):
             f"hits={int(cpu.final_cache.hits)} "
             f"stale={int(cpu.final_cache.stale_serves)}")
     return pod_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fault layer -- E12's scenario under E13's compound
+# programs at phase 11's full width
+# ---------------------------------------------------------------------------
+
+FAULT_TICKS = 400  # the first 400 ticks of phase 3's bursty grid
+FAULT_POD_TICKS = 200  # the power_of_d run under the same program
+FAULT_OFF_TICKS = 100  # the zero-cost and proxy_join runs
+FAULT_PROFILE = ((150, 200), (350, 400))  # in and after the fault window
+# benchmarks/resilience.py (E12): its config, horizon, seeds and the
+# recovery rule's hold; (d) cuts the horizon to 150 ticks and divides
+# every event's t0 and duration by 6, for time
+E12 = dict(m=8, N=1024, middleware=("fleet_cache",), gossip_ms=100.0)
+E12_T, E12_SEEDS, E12_HOLD = 900, (0, 1), 20
+E12_SMALL_T, E12_CUT = 150, 6
+E12_CELLS = (("midas", "hysteresis"), ("round_robin", "static"),
+             ("power_of_d", "hysteresis"))
+
+
+def fault_program(faults):
+    """E13's three compound programs (benchmarks/redteam.py), retimed to
+    400 ticks and applied together."""
+    ev = faults.FaultEvent
+    return (
+        faults.overlap(
+            ev("ckpt_storm_fleet", t0=100, duration=150, magnitude=0.6),
+            ev("proxy_crash", t0=120, duration=120, target=0))
+        + faults.rolling("server_brownout", targets=(1, 2, 3), t0=100,
+                         duration=80, stagger=50, magnitude=0.3)
+        + (faults.CascadeEvent(
+            trigger=ev("proxy_crash", t0=120, duration=120, target=0),
+            effect=ev("gossip_partition", t0=0, duration=100, target=-1),
+            offset=10),))
+
+
+def e12_blocks(faults, cut=1):
+    """E12's six fault blocks, every t0 and duration divided by ``cut``."""
+    ev = faults.FaultEvent
+    return {
+        "none": None,
+        "proxy_crash": (ev("proxy_crash", t0=300 // cut,
+                           duration=250 // cut, target=0),),
+        "proxy_join": (ev("proxy_join", t0=300 // cut, target=0),),
+        "server_brownout": (ev("server_brownout", t0=300 // cut,
+                               duration=250 // cut, target=1,
+                               magnitude=0.25),),
+        "gossip_partition": (ev("gossip_partition", t0=300 // cut,
+                                duration=250 // cut, target=-1),),
+        "ckpt_storm_fleet": (ev("ckpt_storm_fleet", t0=300 // cut,
+                                duration=200 // cut, magnitude=0.6),),
+    }
+
+
+def recovery_ms(mean_q, t_clear, band, dt_ms) -> float:
+    """E12's recovery rule (benchmarks/resilience.py): ms from the fault
+    clearing until the mean queue stays within ``band`` for E12_HOLD
+    ticks; the remaining horizon when it never re-enters."""
+    run = 0
+    for i, good in enumerate(mean_q[t_clear:] <= band):
+        run = run + 1 if good else 0
+        if run >= E12_HOLD:
+            return float((i - E12_HOLD + 1) * dt_ms)
+    return float(len(mean_q[t_clear:]) * dt_ms)
+
+
+class TickProbe:
+    """Wraps the engine's tick for one run: records the remap masks the
+    engine makes (their ticks), the availability each tick's fleet stage
+    is handed, and profiles the device kernels of chosen tick windows."""
+
+    def __init__(self, torch, sim, core, windows=()):
+        self.torch, self.sim, self.core = torch, sim, core
+        self.windows = windows
+        self.flips, self.avail, self.kernels = [], [], []
+        self.prof = None
+
+    def __enter__(self):
+        from repro_torch.core import faults, middleware
+
+        sim, torch = self.sim, self.torch
+        self.saved = (sim._tick, faults.moved_mask,
+                      middleware.FleetCache.on_batch)
+        tick, moved, on_batch = self.saved
+        probe = self
+
+        def probed_tick(cfg, policy, mws, controller, impl, consts, hz, t,
+                        state):
+            starts = [lo for lo, _ in probe.windows]
+            ends = [hi for _, hi in probe.windows]
+            if t in starts:
+                probe.start()
+            out = tick(cfg, policy, mws, controller, impl, consts, hz, t,
+                       state)
+            if t + 1 in ends:
+                probe.stop(ends.index(t + 1))
+            return out
+
+        def probed_moved(fc, fx, t):
+            probe.flips.append(t)
+            return moved(fc, fx, t)
+
+        def probed_batch(mw, state, batch, cfg):
+            if batch.faults is not None:
+                probe.avail.append(batch.faults.avail)
+            return on_batch(mw, state, batch, cfg)
+
+        sim._tick = probed_tick
+        faults.moved_mask = probed_moved
+        middleware.FleetCache.on_batch = probed_batch
+        return self
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
+
+    def stop(self, i):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                for e in self.prof.events())
+        lo, hi = self.windows[i]
+        self.kernels.append(n / (hi - lo))
+        self.prof = None
+
+    def __exit__(self, *exc):
+        from repro_torch.core import faults, middleware
+
+        (self.sim._tick, faults.moved_mask,
+         middleware.FleetCache.on_batch) = self.saved
+        return False
+
+
+def phase_faults(torch, np, core, sim, counters, wl3):
+    """E12's scenario (the first 400 ticks of phase 3's bursty grid)
+    under E13's compound programs at phase 11's constants: midas through
+    route_tick bitwise its plain run, with the fault layer's invariants;
+    power_of_d through route_select; zero cost when off and proxy_join;
+    the card against the CPU over E12's fault blocks; E12's headline.
+    Returns the launches (route_tick, route_select)."""
+    from repro_torch.core import faults
+
+    T = FAULT_TICKS
+    program = fault_program(faults)
+    cfg = core.SimConfig(**FLEET, faults=program)
+    wl = plane_grid(wl3, T)
+    grid = (wl.keys, wl.mask, wl.is_write)
+    fc = faults.compile_faults(cfg, T)
+    flips = [int(t) for t in fc.flips]
+    crash, rejoin = 120, 240
+    detect = crash + fc.timeout_ticks
+    check(flips == [detect, rejoin],
+          f"the compiled schedule flips at {flips}, expected "
+          f"{[detect, rejoin]}")
+
+    # (a) the full-width run through simulate, with warmup
+    t_a = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    targets = sim.warmup(cfg, device="cuda")
+    warm_s = time.perf_counter() - t0
+    zero_counts(counters)
+    with TickProbe(torch, sim, core) as probe:
+        t0 = time.perf_counter()
+        res = core.simulate(cfg, wl, device="cuda")
+        run_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_tick"] = T
+    say(f"[12] launches in the faulted fleet run: {counts} (expected one "
+        f"route_tick a tick, {T}, and no other kernel)")
+    check(counts == want, f"{counts} launches, expected {want}")
+    check(probe.flips == flips,
+          f"remap invalidation ran at ticks {probe.flips}, the schedule "
+          f"flips at {flips}")
+    # the storm's writes join the offered traffic: check against its grid
+    st_keys, st_mask, st_w = faults.apply_traffic(fc, *grid)
+    check_result(np, res, wl._replace(mask=st_mask), T, cfg.m)
+    # after detection no feasible set holds server 0; only a pin made
+    # before it (live for at most PIN_C_MS) may still send a key there
+    arr, q = res.arrivals, res.queue_timeline
+    lo = detect + int(np.ceil(core.controllers.PIN_C_MS / cfg.dt_ms))
+    pinned = float(arr[detect:lo, 0].sum())
+    check((arr[lo:rejoin, 0] == 0).all(),
+          f"the dead server got {arr[lo:rejoin, 0].sum():.0f} arrivals "
+          f"between detection (+ the pin time) and rejoin")
+    check((q[lo - 1:rejoin, 0] == q[lo - 1, 0]).all(),
+          "the dead server's queue moved between detection and rejoin")
+    avail = torch.stack(probe.avail).cpu().numpy()
+    degraded = ~fc.detected.all(axis=1)
+    check(avail.shape == (T,) and np.array_equal(
+        avail < faults.AVAIL_FULL, degraded),
+        "avail is not below AVAIL_FULL exactly on the detected-degraded "
+        "ticks")
+    fl = res.final_cache
+    check_fleet_counters(fl, cfg.P, "faulted fleet run")
+    main_s = max(run_s - warm_s, 1e-9)
+    storm = int(st_mask.sum().item()) - int(wl.mask.sum().item())
+    say(f"[12] E12's bursty grid (ticks 0-{T} of phase 3's) at m={cfg.m} "
+        f"N={cfg.N} R={R_FULL} P={cfg.P} gossip {cfg.gossip_ms:g} ms, "
+        f"fleet routing, under E13's three programs together (storm "
+        f"100-250 mag 0.6, crash of server 0 120-240, rolling brownouts "
+        f"of servers 1-3 from 100, partition of every proxy "
+        f"{detect + 10}-{detect + 110}): flips at {flips} (detection "
+        f"{fc.timeout_ticks} ticks after the crash), remap invalidation "
+        f"at exactly those ticks; server 0 got {pinned:.0f} arrivals over "
+        f"[{detect}, {lo}) (pins made before detection), none over "
+        f"[{lo}, {rejoin}), and its queue stayed at {q[lo - 1, 0]:.1f}; avail "
+        f"< AVAIL_FULL on exactly the {int(degraded.sum())} degraded "
+        f"ticks; {storm} storm writes; mean_queue={res.mean_queue():.6f} "
+        f"worst_case_queue={res.worst_case_queue():.6f} "
+        f"steered={res.steered.sum():.0f} hits={int(fl.hits)} "
+        f"stale={int(fl.stale_serves)} bypasses={int(fl.bypasses)} (the "
+        f"per-proxy counters sum to them)")
+    with TickProbe(torch, sim, core, FAULT_PROFILE) as prof:
+        st = sim.init_state(cfg, *targets, device="cuda")
+        sim.run_ticks(cfg, st, *grid)
+    say(f"[12] faulted fleet run: {T / main_s:.1f} ticks/s ({run_s:.3f} s "
+        f"incl. warmup, {warm_s:.3f} s alone); kernels a tick "
+        + ", ".join(f"{k:.1f} over ticks {lo}-{hi}" for k, (lo, hi) in
+                    zip(prof.kernels, FAULT_PROFILE))
+        + f" (the tick alone, torch.profiler); card {card_line()}")
+    runs = run_both(torch, sim, cfg, grid, targets)
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0],
+                     "faulted fleet midas")
+    again = sim._to_result(cfg, runs["cuda"][0][1], None)
+    for f in FIELDS:
+        check(np.array_equal(getattr(res, f), getattr(again, f)),
+              f"faulted: simulate vs run_ticks: {f} differs")
+    say(f"[12] the same {T} ticks with the plain wave loop: every per-tick "
+        f"output (dV included) and the final state (the whole FleetState, "
+        f"the pin tables and histories) bit-for-bit equal to the "
+        f"route_tick run ({T / runs['cuda'][1]:.1f} ticks/s, plain "
+        f"{T / runs['ref'][1]:.1f})")
+    tick_launches = T
+
+    say(f"[12] (a) took {time.perf_counter() - t_a:.1f} s")
+
+    # (b) power_of_d under the same program and fleet routing
+    t_b = time.perf_counter()
+    n = FAULT_POD_TICKS
+    pod = dataclasses.replace(cfg, policy="power_of_d")
+    zero_counts(counters)
+    runs = run_both(torch, sim, pod, tuple(x[:n] for x in grid),
+                    (0.15, 5.0 * cfg.service_ms))
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_select"] = n * cfg.P
+    check(counts == want, f"faulted power_of_d: {counts}, expected {want}")
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0],
+                     "faulted power_of_d")
+    say(f"[12] power_of_d under the same program and fleet routing, {n} "
+        f"ticks: {want['route_select']} route_select launches, no other "
+        f"kernel; bit-for-bit its plain run; {n / runs['cuda'][1]:.1f} "
+        f"ticks/s ((b) took {time.perf_counter() - t_b:.1f} s)")
+    pod_launches = counts["route_select"]
+
+    # (c) zero cost when off, then proxy_join at full width
+    t_c = time.perf_counter()
+    n = FAULT_OFF_TICKS
+    short = tuple(x[:n] for x in grid)
+    zero_counts(counters)
+    outs = {}
+    for name, fa in (("None", None), ("()", ()),
+                     ("benign", (faults.FaultEvent("proxy_crash", t0=n + 50,
+                                                   target=0),))):
+        c = dataclasses.replace(cfg, faults=fa)
+        outs[name] = sim.run_ticks(c, sim.init_state(c, *targets,
+                                                     device="cuda"), *short)
+    for name in ("()", "benign"):
+        (fa, oa), (fb, ob) = outs["None"], outs[name]
+        for f in oa._fields:
+            check(torch.equal(getattr(oa, f), getattr(ob, f)),
+                  f"faults={name}: per-tick {f} differs from faults=None")
+        for i, (x, y) in enumerate(zip(tree_leaves(fa), tree_leaves(fb))):
+            check(torch.equal(x, y),
+                  f"faults={name}: final state leaf {i} differs")
+    join = dataclasses.replace(
+        cfg, faults=(faults.FaultEvent("proxy_join", t0=50, target=0),))
+    runs = run_both(torch, sim, join, short, targets)
+    check_runs_equal(torch, runs["cuda"][0], runs["ref"][0], "proxy_join")
+    counts = read_counts(counters)
+    check(counts["route_tick"] == 4 * n and sum(counts.values()) == 4 * n,
+          f"zero-cost and proxy_join runs launched {counts}")
+    jflips = [int(t) for t in faults.compile_faults(join, n).flips]
+    (_, jo), _ = runs["cuda"]
+    check(jflips == [fc.timeout_ticks, 50],
+          f"proxy_join flips at {jflips}")
+    absent = int(jo.arrivals[jflips[0] + 6:50, 0].sum().item())
+    check(absent == 0, "the absent server got arrivals once detected")
+    say(f"[12] zero cost when off, {n} ticks at full width: faults=() and a "
+        f"benign event (t0 past the horizon) equal faults=None bit for bit "
+        f"(every per-tick output, the final state); proxy_join (t0=50, "
+        f"server 0; presumed alive for the detection window, so flips at "
+        f"{jflips}) bit-for-bit its plain run, no arrivals to server 0 "
+        f"from {jflips[0] + 6} (detection + the pin time) until it joins "
+        f"((c) took {time.perf_counter() - t_c:.1f} s)")
+    tick_launches += 4 * n
+
+    # (d) the card against the CPU over E12's fault blocks
+    blocks = e12_blocks(faults, E12_CUT)
+    swl = core.make_workload("bursty", T=E12_SMALL_T, m=E12["m"], seed=0,
+                             N=E12["N"], device="cpu")
+    t0 = time.perf_counter()
+    # each block under one (policy, controller) cell in turn, so every
+    # cell meets two blocks: a cut from the 18 pairs, for time
+    for i, (block, events) in enumerate(blocks.items()):
+        for policy, ctrl in (E12_CELLS[i % len(E12_CELLS)],):
+            small = core.SimConfig(**E12, policy=policy, controller=ctrl,
+                                   faults=events)
+            cpu = core.simulate(small, swl, do_warmup=False, device="cpu")
+            gpu = core.simulate(small, swl, do_warmup=False, device="cuda")
+            what = f"E12 {block}, {policy}+{ctrl}"
+            for f in FIELDS:
+                a, b = getattr(cpu, f), getattr(gpu, f)
+                if f == "pressure":
+                    check(np.allclose(a, b, rtol=1e-6, atol=0),
+                          f"{what}: pressure differs")
+                else:
+                    check(np.array_equal(a, b),
+                          f"{what}: card vs CPU: {f} differs")
+            for i, (x, y) in enumerate(zip(tree_leaves(cpu.final_cache),
+                                           tree_leaves(gpu.final_cache))):
+                check(torch.equal(x, y.cpu()),
+                      f"{what}: card vs CPU: FleetState leaf {i} differs")
+    say(f"[12] E12's six fault blocks, each under one of the "
+        f"{len(E12_CELLS)} (policy, controller) cells in turn, at "
+        f"m={E12['m']} N={E12['N']}, T={E12_SMALL_T} (cut from {E12_T}, t0 "
+        f"and durations / {E12_CUT}), CPU-realized grid: the card equals "
+        f"the CPU on every output and the FleetState "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (e) E12's headline at its own horizon, on port-realized grids
+    t_e = time.perf_counter()
+    ewl = core.make_workload("bursty", T=E12_T, m=E12["m"], seed=0,
+                             N=E12["N"], device="cuda")
+    crash = e12_blocks(faults)["proxy_crash"]
+    fc12 = faults.compile_faults(
+        core.SimConfig(**E12, faults=crash), E12_T)
+    active = np.flatnonzero(fc12.active)
+    a0, a1 = int(active[0]), int(active[-1])
+    head = {}
+    for policy, ctrl in E12_CELLS[:2]:
+        mq = {}
+        for block in ("none", "proxy_crash"):
+            qs = []
+            for seed in E12_SEEDS:
+                c = core.SimConfig(**E12, policy=policy, controller=ctrl,
+                                   faults=None if block == "none" else
+                                   crash, seed=seed)
+                r = core.simulate(c, ewl, do_warmup=False, device="cuda")
+                qs.append(r.queue_timeline)
+            mq[block] = np.stack(qs)
+        mu = float(mq["none"].mean(axis=2).mean())
+        band = max(1.5 * mu, mu + 0.5)
+        mean_q = mq["proxy_crash"].mean(axis=2)
+        rec = [recovery_ms(mean_q[s], a1 + 1, band, 50.0)
+               for s in range(len(E12_SEEDS))]
+        head[f"{policy}+{ctrl}"] = dict(
+            recovery_ms=float(np.mean(rec)),
+            peak=float(mq["proxy_crash"][:, a0:a1 + 1].max()), band=band)
+    ad, sta = head["midas+hysteresis"], head["round_robin+static"]
+    say("[12] " + json.dumps({"e12_headline": {
+        "crash_recovery_ms_adaptive": ad["recovery_ms"],
+        "crash_recovery_ms_static": sta["recovery_ms"],
+        "adaptive_recovers_faster": ad["recovery_ms"] < sta["recovery_ms"],
+        "crash_peak_adaptive": ad["peak"], "crash_peak_static": sta["peak"],
+        "band_adaptive": ad["band"], "band_static": sta["band"],
+        "T": E12_T, "seeds": list(E12_SEEDS), "grid": "port-realized",
+        "seconds": time.perf_counter() - t_e}}))
+    return tick_launches, pod_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1994,6 +2473,7 @@ def main() -> int:
         phase_build(torch, _build, sources, loaders)
         rows, max_err = phase_kernel(torch, kernel, ref)
         tick_row = phase_route_tick(torch, np, sim, kernel)
+        phase_member_route(torch, np, sim, kernel, ref)
         attn_rows, attn_err = phase_attention(torch, fa_kernel, fa_ref,
                                               da_kernel, da_ref)
         cs_rows, cs_err = phase_chunk_scan(torch, cs_kernel, cs_ref)
@@ -2013,6 +2493,10 @@ def main() -> int:
         t11 = time.perf_counter()
         fleet_pod = phase_fleet(torch, np, core, sim, counters)
         say(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
+        t12 = time.perf_counter()
+        fault_tick, fault_pod = phase_faults(torch, np, core, sim, counters,
+                                             wl)
+        say(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
         model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
             torch, np, serving, counters, model, tag=6,
@@ -2022,7 +2506,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_serve_small(torch, np, serving)
         t8 = time.perf_counter()
-        model = make_model(torch, get_arch("falcon-mamba-7b"), 8)
+        ssm = get_arch(SSM_ARCH)
+        say(f"[8] {ssm.name}: cut to {SSM_LAYERS} of its {ssm.num_layers} "
+            f"layers (depth only; every width as published)")
+        model = make_model(
+            torch, dataclasses.replace(ssm, num_layers=SSM_LAYERS), 8)
         _, ssm_launches = phase_serve(
             torch, np, serving, counters, model, tag=8,
             per_layer=lambda R, P, T: {"chunk_scan": R * -(-P // 128)},
@@ -2057,12 +2545,13 @@ def main() -> int:
         kernel_entry("route_select", csrc.format("midas_route",
                                                  "route_select"),
                      REPLACES, launches + plane["route_select"]
-                     + claims_launches["route_select"] + fleet_pod,
+                     + claims_launches["route_select"] + fleet_pod
+                     + fault_pod,
                      max_err, main_row),
         kernel_entry("route_tick", csrc.format("midas_route",
                                                "route_select"),
                      TICK_REPLACES, tick_launches + plane["route_tick"]
-                     + FLEET_TICKS, 0.0, tick_row),
+                     + FLEET_TICKS + fault_tick, 0.0, tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",

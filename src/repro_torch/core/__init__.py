@@ -2,10 +2,14 @@
 # power-of-d routing over consistent hashing (policies), the cooperative
 # cache with leases and adaptive TTLs (middleware), and the
 # self-stabilizing control loop (controllers), driven by the
-# queue-network simulator (sim).  See repro_torch/__init__.py.
+# queue-network simulator (sim); fault events compile into per-tick
+# schedules through the fault registry (faults).  See
+# repro_torch/__init__.py.
 from repro_torch.core import (cache, control, controllers,  # noqa: F401
-                              hashring, middleware, policies, prng,
-                              registry, sim, telemetry, workloads)
+                              faults, fleet, hashring, middleware,
+                              policies, prng, registry, sim, telemetry,
+                              workloads)
+from repro_torch.core.faults import FaultEvent  # noqa: F401
 from repro_torch.core.sim import (SimConfig, SimResult,  # noqa: F401
                                   simulate)
 from repro_torch.core.workloads import (WORKLOADS,  # noqa: F401

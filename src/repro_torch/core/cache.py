@@ -17,7 +17,10 @@ Semantics (paper §IV-C):
 
 Write-pressure guard: when the write-mix signal (:func:`write_pressure`)
 exceeds ``W_HIGH``, misses are served through without installing, and
-counted in ``CacheState.bypasses``.
+counted in ``CacheState.bypasses``.  Under a membership fault the guard
+also holds while the detected live fraction (``avail``) is below
+``AVAIL_FULL``, and :func:`remap_invalidate` drops the entries whose
+ring owner changed at an epoch flip.
 
 This is the converged shared table (the Δ=0 gossip limit); the proxy
 fleet of :mod:`repro_torch.core.fleet` keeps one and derives each
@@ -33,11 +36,12 @@ version bump, which counts every repeat.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.faults.base import AVAIL_FULL
 from repro_torch.core.xla import div, fma, set_last
 
 BETA = 0.1
@@ -145,13 +149,17 @@ def apply_batch(
     lease_ms: float = 5000.0,
     rtt_ms: float = 2.0,
     p_star: float = P_STAR,
+    avail: Optional[torch.Tensor] = None,
 ) -> Tuple[CacheState, BatchEffects]:
     """Apply one tick's effects to the table, given hit flags.
 
     Writes always reach the server: they bump the authoritative version,
     feed the hazard estimators and, in lease mode, invalidate the entry.
     Misses install an entry with the mode's validity horizon unless the
-    write-pressure guard is active.  ``keys`` is int64 in [0, N).
+    write-pressure guard is active, or ``avail`` (() float32, the fault
+    layer's detected live fraction) is below ``AVAIL_FULL``: entries
+    installed against a shrunken ring would be invalidated at the next
+    epoch flip.  ``keys`` is int64 in [0, N).
     Returns ``(new_cache, effects)``: the rows that invalidated or
     installed their key (the fleet's gossip events) and the miss and
     bypass flags the counters count.
@@ -184,6 +192,8 @@ def apply_batch(
     # ... unless the write-pressure guard trips: serve-through, no install
     miss = valid & ~hit
     bypass = write_pressure(cache) > W_HIGH
+    if avail is not None:
+        bypass = bypass | (avail < AVAIL_FULL)
     install = miss & ~bypass
     if mode == "lease":
         expiry = now_ms + lease_ms
@@ -231,11 +241,14 @@ def lookup_batch(
     lease_ms: float = 5000.0,
     rtt_ms: float = 2.0,
     p_star: float = P_STAR,
+    avail: Optional[torch.Tensor] = None,
 ) -> Tuple[CacheState, torch.Tensor]:
     """Process one tick of requests against the shared table.
 
     Reads hitting a valid entry are served at the proxy (no server
-    load).  Returns ``(new_cache, served_locally: (R,) bool)``.
+    load).  ``avail`` feeds the availability install guard (see
+    :func:`apply_batch`).  Returns ``(new_cache, served_locally: (R,)
+    bool)``.
     """
     _, hit, stale = classify(
         cache.expiry_ms[keys],
@@ -248,8 +261,18 @@ def lookup_batch(
     new, _ = apply_batch(
         cache, keys, mask, is_write, hit, stale, now_ms,
         mode=mode, lease_ms=lease_ms, rtt_ms=rtt_ms, p_star=p_star,
+        avail=avail,
     )
     return new, hit
+
+
+def remap_invalidate(cache: CacheState, moved: torch.Tensor) -> CacheState:
+    """Drop every entry whose ring owner just changed (``moved``: (N,)
+    bool from the fault layer's per-epoch owner diff), IN PLACE: its
+    expiry is zeroed (never live), so the next read revalidates at the
+    new owner.  Entries whose owner did not move are untouched."""
+    cache.expiry_ms.masked_fill_(moved, 0.0)
+    return cache
 
 
 def slow_update(

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import registry as registry_lib
 from repro_torch.core import telemetry
+from repro_torch.core.faults.base import AVAIL_FULL  # noqa: F401
 from repro_torch.core.xla import reduce_sum
 from repro_torch.kernels.common import resolve_device
 
@@ -47,9 +48,8 @@ F_CAP = 0.10
 F_MAX_HIGH = 1.0
 TTL_SCALE_MIN, TTL_SCALE_MAX = 0.25, 4.0
 
-# Detected live fraction below which membership counts as degraded (the
-# fault layer's threshold; constant 1.0 while faults are not ported).
-AVAIL_FULL = 1.0 - 1e-6
+# ``AVAIL_FULL`` (imported above) is the fault layer's threshold: a
+# detected live fraction below it counts as degraded membership.
 
 ABLATIONS = ("no_margin", "no_pin", "no_bucket", "no_fault_signal")
 

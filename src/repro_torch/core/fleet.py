@@ -28,9 +28,12 @@ The (N,) tables and the (D, N) ring are updated IN PLACE, as the shared
 table's are (at N = 10**6 the ring alone is D × 8 MB).  The gossip log's
 scatters take :func:`xla.set_last`'s last-write-wins, invalidations
 first and installs after, so an install wins a collision, as the
-reference's two scatters give.  The fault layer's parts of the reference
-module (``remap_invalidate``, and ``lookup_fleet``'s ``partitioned`` and
-``avail``) wait for ROADMAP §1 item 15.
+reference's two scatters give.
+
+Under faults a gossip partition cuts a proxy off from remote events
+(``lookup_fleet(partitioned=)``), the availability install guard holds
+while membership is degraded (``avail=``), and :func:`remap_invalidate`
+drops moved keys from the converged table and every lagged snapshot.
 """
 
 from __future__ import annotations
@@ -44,13 +47,6 @@ import torch
 from repro_torch.core import cache as cache_lib
 from repro_torch.core.xla import set_last
 from repro_torch.kernels.common import resolve_device
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to the fault layer, which is not ported yet "
-        f"(ROADMAP §1 item 15)"
-    )
 
 
 class FleetState(NamedTuple):
@@ -163,12 +159,14 @@ def lookup_fleet(
     proxy's gossip view; effects land on the converged table via the
     shared model's ``apply_batch``, then this tick's install and
     invalidation events enter the gossip log and the snapshot ring.
-    Returns ``(new_state, served_locally: (R,) bool)``.
+
+    ``partitioned`` ((P,) bool from the fault layer) cuts a proxy off
+    from gossip: remote events never become visible to it while it is
+    partitioned, so it serves from the lagged snapshot plus its own
+    events.  ``avail`` feeds the availability install guard
+    (:func:`repro_torch.core.cache.apply_batch`).  Returns
+    ``(new_state, served_locally: (R,) bool)``.
     """
-    if partitioned is not None:
-        raise _unported("a gossip partition (partitioned=)")
-    if avail is not None:
-        raise _unported("the availability install guard (avail=)")
     sh = state.shared
     P = state.hits_p.shape[0]
     D, N = state.lag_expiry.shape
@@ -183,7 +181,10 @@ def lookup_fleet(
     lag_ver = state.lag_version.view(-1)[lag_row]
     own = state.last_origin[keys] == proxy
     age = now_ms - state.last_event_ms[keys]
-    fresh = own | (age >= float(np.float32(gossip_ms)))
+    propagated = age >= float(np.float32(gossip_ms))
+    if partitioned is not None:
+        propagated = propagated & ~partitioned[proxy.long()]
+    fresh = own | propagated
     exp_view = torch.where(fresh, sh.expiry_ms[keys], lag_exp)
     ver_view = torch.where(fresh, sh.cached_version[keys], lag_ver)
 
@@ -195,6 +196,7 @@ def lookup_fleet(
     new_sh, eff = cache_lib.apply_batch(
         sh, keys, mask, is_write, hit, stale, now_ms,
         mode=mode, lease_ms=lease_ms, rtt_ms=rtt_ms, p_star=p_star,
+        avail=avail,
     )
 
     # --- gossip log: invalidations first, installs win on collision ------
@@ -230,9 +232,15 @@ def lookup_fleet(
 
 
 def remap_invalidate(state: FleetState, moved: torch.Tensor) -> FleetState:
-    """Fleet-wide remap invalidation after a membership epoch flip: part
-    of the fault layer."""
-    raise _unported("the fleet's remap_invalidate")
+    """Fleet-wide remap invalidation after a membership epoch flip, IN
+    PLACE: moved keys are dropped from the converged table
+    (:func:`repro_torch.core.cache.remap_invalidate`) and from every
+    row of the lag ring, so whichever view a proxy's gossip test
+    selects, the entry is never live and no proxy serves an entry whose
+    owner changed without revalidating it."""
+    cache_lib.remap_invalidate(state.shared, moved)
+    state.lag_expiry.masked_fill_(moved[None, :], 0.0)
+    return state
 
 
 def slow_fleet(

@@ -8,13 +8,14 @@ get a slow-loop hook on the paper's T_slow cadence.
 
 ``SimConfig.middleware`` is a tuple of registered stage names applied
 in order.  The port carries the cooperative cache (``"cache"``) and its
-gossip-delayed proxy fleet (``"fleet_cache"``).  The fault layer's
-``on_fault`` hook comes with the fault layer (ROADMAP §1 item 15).
+gossip-delayed proxy fleet (``"fleet_cache"``).  Under a fault schedule
+each tick's :class:`BatchView` carries the tick's fault context, and on
+an epoch flip ``on_fault`` runs before any stage serves.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple, Type
+from typing import Any, NamedTuple, Optional, Tuple, Type
 
 import torch
 
@@ -31,6 +32,15 @@ class BatchView(NamedTuple):
     mask: torch.Tensor      # (R,) bool validity (may be narrowed upstream)
     is_write: torch.Tensor  # (R,) bool metadata-mutating ops
     now_ms: torch.Tensor    # () float32 tick clock
+    # fault context (faults.FaultTickInfo), or None when the run carries
+    # no fault schedule: stages read availability and partitions here
+    faults: Any = None
+
+
+def _fault_rows(batch: BatchView) -> Tuple[Optional[torch.Tensor], ...]:
+    """(avail, partition) of the batch's fault context, or Nones."""
+    fi = batch.faults
+    return (None, None) if fi is None else (fi.avail, fi.partition)
 
 
 class Middleware:
@@ -41,6 +51,8 @@ class Middleware:
     one tick: the returned mask replaces ``batch.mask`` downstream, and
     ``absorbed`` is the () float32 count served at the proxy.
     ``on_slow(state, cfg, knobs) -> state`` runs on the T_slow cadence.
+    ``on_fault(state, info, cfg) -> state`` runs on an epoch-flip tick,
+    before ``on_batch``, with the tick's ``faults.FaultTickInfo``.
     """
 
     name: str = "?"
@@ -56,6 +68,12 @@ class Middleware:
         return state, batch.mask, absorbed
 
     def on_slow(self, state: Any, cfg, knobs: Knobs) -> Any:
+        return state
+
+    def on_fault(self, state: Any, info, cfg) -> Any:
+        """React to a membership epoch flip (``info.inval`` marks the
+        keys whose owner changed) before any request of the new epoch
+        is served; the default does nothing."""
         return state
 
 
@@ -96,6 +114,7 @@ class CooperativeCache(Middleware):
         return cache_lib.init_cache(cfg.N, device=device)
 
     def on_batch(self, state: cache_lib.CacheState, batch: BatchView, cfg):
+        avail, _ = _fault_rows(batch)
         state, hit = cache_lib.lookup_batch(
             state,
             batch.keys,
@@ -106,9 +125,15 @@ class CooperativeCache(Middleware):
             lease_ms=cfg.lease_ms,
             rtt_ms=cfg.rtt_ms,
             p_star=cfg.p_star,
+            avail=avail,
         )
         # hits never reach the servers
         return state, batch.mask & ~hit, hit.sum().to(torch.float32)
+
+    def on_fault(self, state: cache_lib.CacheState, info, cfg):
+        if info.inval is None:
+            return state
+        return cache_lib.remap_invalidate(state, info.inval)
 
     def on_slow(self, state: cache_lib.CacheState, cfg, knobs: Knobs):
         lease = cfg.lease_ms if cfg.cache_mode == "lease" else float("inf")
@@ -141,6 +166,7 @@ class FleetCache(Middleware):
     def on_batch(self, state: fleet_lib.FleetState, batch: BatchView, cfg):
         R = batch.keys.shape[0]
         proxy = fleet_lib.proxy_assign(R, cfg.P, state.tick)
+        avail, partition = _fault_rows(batch)
         state, hit = fleet_lib.lookup_fleet(
             state,
             batch.keys,
@@ -153,9 +179,16 @@ class FleetCache(Middleware):
             rtt_ms=cfg.rtt_ms,
             p_star=cfg.p_star,
             gossip_ms=cfg.gossip_ms,
+            partitioned=partition,
+            avail=avail,
         )
         # hits are served by their proxy and never reach the servers
         return state, batch.mask & ~hit, hit.sum().to(torch.float32)
+
+    def on_fault(self, state: fleet_lib.FleetState, info, cfg):
+        if info.inval is None:
+            return state
+        return fleet_lib.remap_invalidate(state, info.inval)
 
     def on_slow(self, state: fleet_lib.FleetState, cfg, knobs: Knobs):
         lease = cfg.lease_ms if cfg.cache_mode == "lease" else float("inf")

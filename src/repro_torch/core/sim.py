@@ -23,11 +23,22 @@ random draw -- the per-tick key chain is walked once on the host and the
 per-wave draws for all ticks are made in a few batched threefry calls,
 bit-for-bit the reference's.
 
+Faults (``SimConfig.faults``, :mod:`repro_torch.core.faults`) compile on
+the host into per-tick schedules, uploaded once per run.  The storm
+overlay and the member-aware feasible sets (one gather per membership
+epoch) join the hoisted work; in the tick, ground-truth membership and
+brownouts scale the service rate, the detected row feeds the
+controller's availability signal and the survivors-only imbalance, and
+on each epoch flip -- a host-known tick -- the stages drop the keys
+whose owner moved before anything is served.  Every fault hook is gated
+on a host flag of the compiled schedule, so a run without faults, or
+with a benign one, takes the fault-free engine's operations.
+
 ``simulate`` runs one config and returns a :class:`SimResult` with the
 paper metrics.  The engine runs on the CUDA device unless the caller
-passes ``device="cpu"``.  Configurations that need a part not ported
-yet (faults, the unrolled reference engine) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+passes ``device="cpu"``.  The unrolled reference engine
+(``unroll_waves``) is not ported and raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import torch
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import controllers as ctrl_lib
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import fleet as fleet_lib
 from repro_torch.core import hashring, prng, telemetry
 from repro_torch.core import middleware as mw_lib
@@ -92,7 +104,10 @@ class SimConfig:
     consensus: str = "mean"  # mean | median | max (fleet view reducer)
     ablate: str = ""  # comma-joined subset of controllers.ABLATIONS
     guard: bool = False  # oscillation guard (controllers.guard)
-    faults: Optional[Tuple] = None  # fault schedule (unported)
+    # fault injection (repro_torch.core.faults): a tuple of registered
+    # fault names, FaultEvent or CascadeEvent; None and () are the
+    # untouched fault-free engine
+    faults: Optional[Tuple] = None
     unroll_waves: bool = False  # unrolled reference engine (unported)
     # wave-routing implementation: "auto" is the CUDA kernel on the card
     # and the plain version on the CPU; "ref" pins the plain version;
@@ -133,10 +148,25 @@ class SimConfig:
             raise ValueError(
                 f"SimConfig.gossip_ms must be >= 0, got {self.gossip_ms!r}"
             )
-        if self.faults:
-            raise _unported("fault injection", 15)
+        if self.faults is not None:
+            if not isinstance(self.faults, (tuple, list)):
+                raise ValueError(
+                    f"SimConfig.faults must be a tuple of fault names "
+                    f"or FaultEvent, got {self.faults!r}"
+                )
+            # canonical and hashable: names become default events, lists
+            # tuples (the fault compiler caches on the config)
+            object.__setattr__(
+                self, "faults", faults_lib.normalize(self.faults)
+            )
+            faults_lib.validate_events(self.faults, m=self.m, P=self.P)
         if self.unroll_waves:
             raise _unported("the unrolled-waves reference engine", 7)
+
+    @property
+    def fault_events(self) -> Tuple:
+        """Canonical tuple of fault events (empty when faults is None)."""
+        return faults_lib.normalize(self.faults)
 
     @property
     def t_fast_ticks(self) -> int:
@@ -282,6 +312,9 @@ class Horizon(NamedTuple):
     rng: torch.Tensor  # (T, 2) state key after each tick's split
     draws: Optional[tuple]  # (T, G, ...) the policy's draws
     jitter: torch.Tensor  # (T,) float32 fast-loop jitter in [-1, 1)
+    fc: Optional[faults_lib.CompiledFaults]  # host schedule, or None
+    fx: Optional[faults_lib.FaultXs]  # its per-tick rows on the device
+    flips: frozenset  # host ticks that open a membership epoch
 
 
 def _scan_inputs(
@@ -293,9 +326,15 @@ def _scan_inputs(
     mask: torch.Tensor,
     is_write: torch.Tensor,
     t0: int = 0,
+    fc: Optional[faults_lib.CompiledFaults] = None,
 ) -> Horizon:
     """Hoist the state-independent work of a (T, R) workload grid whose
     first row is tick ``t0``.
+
+    With a compiled fault schedule ``fc``, storm traffic is overlaid on
+    the grid first (so the hoisted gathers see the storm keys), the
+    feasible sets are gathered per membership epoch, and the per-tick
+    fault rows are uploaded to the grid's device.
 
     The reference splits ``state.rng`` into (rng, r_mw, r_route) each
     tick, folds the wave index into r_route, and draws the policy's
@@ -307,6 +346,10 @@ def _scan_inputs(
     """
     T = keys.shape[0]
     dev = keys.device
+    if fc is not None:
+        keys, mask, is_write = faults_lib.apply_traffic(
+            fc, keys, mask, is_write
+        )
     k1, k2 = prng.key_ints(rng0)
     chain = []
     for _ in range(T):
@@ -323,6 +366,10 @@ def _scan_inputs(
         r_route[:, None, :], torch.arange(G, device=dev)
     )  # (T, G, 2)
     ticks = torch.arange(t0, t0 + T, dtype=torch.float32, device=dev)
+    if fc is None:
+        feasg = hashring.feasible_set(ring, keysg, cfg.d_max)
+    else:
+        feasg = faults_lib.feasible_by_epoch(ring, keysg, cfg.d_max, fc)
     return Horizon(
         t0=t0,
         now_ms=ticks * cfg.dt_ms,
@@ -330,10 +377,14 @@ def _scan_inputs(
         mask=mask,
         is_write=is_write,
         keysg=keysg,
-        feasg=hashring.feasible_set(ring, keysg, cfg.d_max),
+        feasg=feasg,
         rng=rng,
         draws=policy.wave_draws(waves, cfg, Rg),
         jitter=prng.uniform(prng.fold_in(rng, 3), (), -1.0, 1.0),
+        fc=fc,
+        fx=None if fc is None else faults_lib.make_xs(fc, dev),
+        flips=frozenset(()) if fc is None or not fc.has_remap
+        else frozenset(int(t) for t in fc.flips),
     )
 
 
@@ -343,6 +394,8 @@ class _Consts(NamedTuple):
     zero: torch.Tensor  # () float32 0
     avail: torch.Tensor  # () float32 1: every server detected live
     member: torch.Tensor  # (m,) float32 1
+    # (m,) float32 serve_per_tick, the service rate a fault scales
+    rate: Optional[torch.Tensor] = None
 
 
 def _route_waves(
@@ -410,8 +463,15 @@ def _route_waves(
 
 
 def _signals(
-    cfg: SimConfig, consts: _Consts, s: SimState, B, p99, jitter
+    cfg: SimConfig, consts: _Consts, s: SimState, B, p99, jitter,
+    hz: Horizon, t: int,
 ) -> Signals:
+    # availability and membership: constants on the fault-free path,
+    # this tick's detected row under a schedule
+    if hz.fx is None:
+        avail, member = consts.avail, consts.member
+    else:
+        avail, member = hz.fx.avail[t], hz.fx.detected[t].float()
     return Signals(
         B=B,
         p99=p99,
@@ -420,12 +480,21 @@ def _signals(
         write_mix=s.win_writes / torch.clamp(s.win_events, min=1.0),
         jitter=jitter,
         rtt_ms=cfg.rtt_ms,
-        avail=consts.avail,
-        member=consts.member,
+        avail=avail,
+        member=member,
     )
 
 
-def _ingest(cfg, controller, consts, s: SimState, jitter) -> SimState:
+def _imbalance(hz: Horizon, t: int, L_hat: torch.Tensor) -> torch.Tensor:
+    """B(t); under a membership fault over the detected-live servers
+    only, so a dead server's frozen queue does not pin it."""
+    if hz.fc is not None and hz.fc.has_remap:
+        return telemetry.imbalance_masked(L_hat, hz.fx.detected[t])
+    return telemetry.imbalance(L_hat)
+
+
+def _ingest(cfg, controller, consts, hz: Horizon, t: int,
+            s: SimState) -> SimState:
     """Fast loop: telemetry ingest, then the controller's fast step."""
     p50_o, p99_o = telemetry.sketch_quantiles(s.sketch)
     a = ctrl_lib.ALPHA_FAST
@@ -439,20 +508,22 @@ def _ingest(cfg, controller, consts, s: SimState, jitter) -> SimState:
         p50_hat=telemetry.ewma(s.p50_hat, p50_o, a),
         p99_hat=telemetry.ewma(s.p99_hat, p99_o, a),
     )
-    B = telemetry.imbalance(s.L_hat)
+    B = _imbalance(hz, t, s.L_hat)
     ctrl, _ = controller.fast(
-        s.ctrl, _signals(cfg, consts, s, B, s.p99_hat.max(), jitter)
+        s.ctrl,
+        _signals(cfg, consts, s, B, s.p99_hat.max(), hz.jitter[t], hz, t),
     )
     return s._replace(ctrl=ctrl)
 
 
-def _slow(cfg, controller, mws, consts, s: SimState) -> SimState:
+def _slow(cfg, controller, mws, consts, hz: Horizon, t: int,
+          s: SimState) -> SimState:
     """Slow loop: the controller's slow step and the stages' retunes;
     the write-mix window restarts."""
-    B = telemetry.imbalance(s.L_hat)
+    B = _imbalance(hz, t, s.L_hat)
     ctrl, k = controller.slow(
         s.ctrl,
-        _signals(cfg, consts, s, B, s.p99_hat.max(), consts.zero),
+        _signals(cfg, consts, s, B, s.p99_hat.max(), consts.zero, hz, t),
     )
     return s._replace(
         ctrl=ctrl,
@@ -483,6 +554,19 @@ def _tick(
         win_events=state.win_events + mask.sum(),
     )
 
+    # --- fault context: remap invalidation BEFORE any stage serves -------
+    finfo = None
+    if hz.fc is not None:
+        inval = None
+        if t in hz.flips:
+            inval = faults_lib.moved_mask(hz.fc, hz.fx, t)
+        finfo = faults_lib.tick_info(hz.fc, hz.fx, t, inval)
+        if inval is not None:
+            state = state._replace(mw=tuple(
+                mw.on_fault(ms, finfo, cfg)
+                for mw, ms in zip(mws, state.mw)
+            ))
+
     # --- middleware pipeline: stages may absorb requests at the proxy ----
     absorbed = consts.zero
     mw_states = list(state.mw)
@@ -492,6 +576,7 @@ def _tick(
             mask=mask,
             is_write=is_write,
             now_ms=now_ms,
+            faults=finfo,
         )
         mw_states[i], mask, took = mw.on_batch(mw_states[i], batch, cfg)
         absorbed = absorbed + took
@@ -512,7 +597,18 @@ def _tick(
 
     # --- queue dynamics: constant-rate servers, work-conserving ----------
     L = state.L + arrivals
-    L = L - torch.clamp(L, max=cfg.serve_per_tick)
+    fc = hz.fc
+    if fc is not None and (fc.has_brownout or fc.has_downtime):
+        # ground-truth faults bite at once: browned-out servers drain
+        # slower, dead ones not at all (their queue freezes until rejoin)
+        rate = consts.rate
+        if fc.has_brownout:
+            rate = rate * hz.fx.scale[t]
+        if fc.has_downtime:
+            rate = rate * hz.fx.member[t].float()
+        L = L - torch.minimum(L, rate)
+    else:
+        L = L - torch.clamp(L, max=cfg.serve_per_tick)
     lat_pred = (state.L + arrivals) * cfg.service_ms  # wait of new arrival
     state = state._replace(
         L=L, policy=ps, sketch=telemetry.sketch_add(state.sketch, lat_pred)
@@ -525,9 +621,9 @@ def _tick(
         state = state._replace(L_hat_p=telemetry.ewma_staggered(
             state.L_hat_p, L, t1, cfg.t_fast_ticks, ctrl_lib.ALPHA_FAST))
     if t1 % cfg.t_fast_ticks == 0:
-        state = _ingest(cfg, controller, consts, state, hz.jitter[t])
+        state = _ingest(cfg, controller, consts, hz, t, state)
     if t1 % cfg.t_slow_ticks == 0:
-        state = _slow(cfg, controller, mws, consts, state)
+        state = _slow(cfg, controller, mws, consts, hz, t, state)
 
     k = state.ctrl.knobs
     out = TickOut(
@@ -584,20 +680,33 @@ def run_ticks(
     the final state and the (T, ...) stacked per-tick outputs, still on
     the device.  ``t0`` is the tick clock of the grid's first row, so a
     run can resume from the state another run returned.  The (N,)
-    tables of ``state`` are updated in place."""
+    tables of ``state`` are updated in place.
+
+    A fault schedule is compiled over this grid from its first row, as
+    the reference compiles it over its scan, so a faulted run cannot
+    resume mid-schedule: ``t0`` must then be 0."""
     dev = keys.device
+    fc = faults_lib.compile_faults(cfg, int(keys.shape[0]))
+    if fc is not None and t0 != 0:
+        raise ValueError(
+            f"a faulted run compiles its schedule over the grid from its "
+            f"first row and cannot resume at t0={t0}; run the whole "
+            f"horizon from t0=0"
+        )
     impl = kernels_common.resolve_impl(cfg.route_impl, dev, "route_impl")
     ring = hashring.make_ring(cfg.m, cfg.V, device=dev)
     policy = policy_lib.get(cfg.policy)
     mws = _middlewares(cfg)
     controller = _controller(cfg)
     hz = _scan_inputs(
-        cfg, ring, policy, state.rng, keys, mask, is_write, t0
+        cfg, ring, policy, state.rng, keys, mask, is_write, t0, fc
     )
     consts = _Consts(
         zero=torch.zeros((), dtype=torch.float32, device=dev),
         avail=torch.ones((), dtype=torch.float32, device=dev),
         member=torch.ones((cfg.m,), dtype=torch.float32, device=dev),
+        rate=torch.full((cfg.m,), cfg.serve_per_tick, dtype=torch.float32,
+                        device=dev),
     )
     outs: List[TickOut] = []
     for t in range(keys.shape[0]):

@@ -185,6 +185,28 @@ def imbalance(L_hat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return sd / fma(total, inv, eps)
 
 
+def imbalance_masked(
+    L_hat: torch.Tensor, live: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """:func:`imbalance` over the detected-live servers only, so that a
+    crashed server's frozen queue does not pin B(t) for the whole
+    outage.  With every server live it equals the reference's
+    ``imbalance_masked`` at all-ones weights (not :func:`imbalance`:
+    the live count is divided by, not multiplied by 1/m).
+
+    Rounded as the reference's jitted version on the CPU: XLA turns the
+    weight products into selects, sums them in :func:`xla.reduce_sum`'s
+    order with every square rounded before its add (at every m, unlike
+    :func:`imbalance`), divides by the live count, and takes a
+    correctly rounded square root."""
+    n = torch.clamp(reduce_sum(live.to(torch.float32)), min=1.0)
+    mu = reduce_sum(torch.where(live, L_hat, 0.0)) / n
+    dev = L_hat - mu
+    var = reduce_sum(torch.where(live, dev * dev, 0.0)) / n
+    sd = torch.sqrt(var.double()).float()
+    return sd / (mu + eps)
+
+
 CONSENSUS_REDUCERS = ("mean", "median", "max")
 
 

@@ -173,16 +173,27 @@ def test_staggered_ewma_matches(P, period):
 
 
 def test_fault_layer_parts_raise_naming_the_roadmap_item():
-    fl = tfleet.init_fleet(8, 2, 1, device="cpu")
+    """The fault layer's parts are ported (they raised before): an
+    unpartitioned fleet at full availability serves as one without
+    them, and an empty remap changes nothing.  The fleet's own argument
+    checks still raise."""
     args = (torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=bool),
             torch.zeros(2, dtype=bool), torch.zeros(2, dtype=torch.int32),
             torch.tensor(0.0))
+    plain, _ = tfleet.lookup_fleet(tfleet.init_fleet(8, 2, 1, device="cpu"),
+                                   *args)
     for kw in (dict(partitioned=torch.zeros(2, dtype=bool)),
                dict(avail=torch.tensor(1.0))):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tfleet.lookup_fleet(fl, *args, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tfleet.remap_invalidate(fl, torch.zeros(8, dtype=bool))
+        got, _ = tfleet.lookup_fleet(
+            tfleet.init_fleet(8, 2, 1, device="cpu"), *args, **kw)
+        for x, y in zip(jax.tree_util.tree_leaves(plain),
+                        jax.tree_util.tree_leaves(got)):
+            assert torch.equal(x, y)
+    fl = tfleet.init_fleet(8, 2, 1, device="cpu")
+    before = [x.clone() for x in jax.tree_util.tree_leaves(fl)]
+    fl = tfleet.remap_invalidate(fl, torch.zeros(8, dtype=bool))
+    assert all(torch.equal(x, y) for x, y in
+               zip(before, jax.tree_util.tree_leaves(fl)))
     with pytest.raises(ValueError, match="P >= 1"):
         tfleet.init_fleet(8, 0, 1, device="cpu")
     with pytest.raises(ValueError, match="D >= 1"):

@@ -5,7 +5,10 @@
 arrivals, counts, dV, pin tables, histories and ``hist_idx``), with
 repeated keys, live and expired pins, binding and free budgets, one
 wave, every row masked or pinned, a budget of 0, 4096 rows a wave, and
-replayed from a CUDA graph;
+replayed from a CUDA graph; both also on the member-aware feasible
+sets of a membership fault (m = 64 with server 0 dead; m = 4 with three
+dead, every row repeating its one live server), and a faulted fleet
+run through each equals its plain run;
 ``flash_attention`` and ``decode_attention`` must agree within the JAX
 suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
 bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
@@ -140,10 +143,12 @@ TICK_CASES = [
 
 
 def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
-               N=10**6, W=5):
+               N=10**6, W=5, member=None):
     """One tick's engine inputs on the card, made with numpy: keys from a
     small pool (repeated within and across waves), a ragged mask, live
-    and expired pins on the pool, integer histories, hot servers."""
+    and expired pins on the pool, integer histories, hot servers.  With
+    ``member`` ((m,) bool) the feasible sets are the member-aware ones
+    the fault layer gathers, at its scan width."""
     from repro_torch.core import hashring, policies, prng
     from repro_torch.core import sim as tsim
     from repro_torch.core.controllers.base import Knobs
@@ -156,8 +161,7 @@ def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
     mask = t(rng.random((G, Rg)) < 0.85)
     if variant == "masked":
         mask[:] = False
-    feas = hashring.feasible_set(hashring.make_ring(m, 64, device="cuda"),
-                                 keys, d_max)
+    feas = _feasible(keys, m, d_max, member)
     policy = policies.get("midas")
     draws = policy.draws(prng.fold_in(prng.PRNGKey(seed, "cuda")[None],
                                       torch.arange(G, device="cuda")),
@@ -190,6 +194,23 @@ def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
                                                              device="cuda"))
     return cfg, policy, st, knobs, t(np.float32(now)), keys, mask, feas, \
         draws, consts
+
+
+def _feasible(keys, m, d_max, member=None):
+    """Feasible sets of ``keys`` on the card: member-free, or restricted
+    to the live servers of ``member`` at the fault layer's scan width
+    (rows repeat their one live server when fewer than d_max live)."""
+    from repro_torch.core import hashring
+    from repro_torch.core.faults import base as faults_base
+
+    ring = hashring.make_ring(m, 64, device="cuda")
+    if member is None:
+        return hashring.feasible_set(ring, keys, d_max)
+    member = np.asarray(member, bool)
+    return hashring.feasible_set(
+        ring, keys, d_max,
+        scan_width=faults_base._scan_width(m, 64, member[None]),
+        member=torch.as_tensor(member).cuda())
 
 
 def _clone(tree):
@@ -1023,3 +1044,98 @@ def _leaves(tree):
     if isinstance(tree, tuple):
         return [x for t in tree for x in _leaves(t)]
     return []
+
+
+# (m, dead servers): phase 3's shape with server 0 dead, and m = 4 with
+# three dead, where every row repeats its one live server
+MEMBER_CASES = [(64, (0,)), (4, (0, 1, 3))]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,dead", MEMBER_CASES)
+def test_cuda_route_kernels_on_member_aware_feasible_sets(m, dead):
+    """route_tick and route_select (power_of_d, chbl) fed the feasible
+    sets of a membership fault, repeated entries included, equal their
+    plain versions bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    member = np.ones(m, bool)
+    member[list(dead)] = False
+    steered = 0
+    for case in TICK_CASES[:4]:
+        seed, G, Rg, f_max, pool, variant = case[:6]
+        tc = _tick_case(seed, G, Rg, f_max, pool, variant, m=m,
+                        member=member)
+        feas = tc[7]
+        assert bool(torch.as_tensor(member).cuda()[feas.long()].all())
+        if m - len(dead) < feas.shape[-1]:
+            assert bool((feas == feas[..., :1]).all())
+        before = kernel.route_tick.launches
+        want, got = _route_tick_both(tc)
+        assert kernel.route_tick.launches == before + 1
+        _assert_ticks_equal(want, got, (m, dead, case))
+        steered += int(got[1].stats.steered)
+    for variant in ("plain", "ties", "infs"):
+        feas, load, p50, sampled, tie, scal = _inputs(512, m, 4, m,
+                                                       variant)
+        keys = torch.randint(0, 10**6, (512,), device="cuda")
+        feas = _feasible(keys, m, 4, member)
+        for mode in ("power_of_d", "chbl", "midas"):
+            args = (feas, load, p50, sampled, tie, scal)
+            want = ref.route_select(*args, mode=mode)
+            got = kernel.route_select(*args, mode=mode)
+            torch.cuda.synchronize()
+            for w, g in zip(want, got):
+                assert w.dtype == g.dtype and torch.equal(w, g), (
+                    m, dead, variant, mode)
+            assert bool(torch.as_tensor(member).cuda()[got[0].long()]
+                        .all())
+    if m == 64:
+        assert steered > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("policy", ["midas", "power_of_d"])
+def test_cuda_faulted_engine_matches_its_plain_run(policy):
+    """A crash, a storm and a partition under the fleet with fleet
+    routing: the kernel run equals the plain run bit for bit on every
+    output and the final state; midas launches route_tick once a tick,
+    power_of_d route_select once a proxy's wave."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import make_workload
+    from repro_torch.core import sim as tsim
+    from repro_torch.core.faults import FaultEvent
+    from repro_torch.kernels.midas_route import kernel
+
+    T, P = 300, 4
+    events = (FaultEvent("ckpt_storm_fleet", t0=100, duration=150,
+                         magnitude=0.6),
+              FaultEvent("proxy_crash", t0=120, duration=120, target=0),
+              FaultEvent("gossip_partition", t0=150, duration=60,
+                         target=-1))
+    wl = make_workload("bursty", T=T, m=8, seed=3, N=512, device="cuda")
+    runs = {}
+    for impl in ("cuda", "ref"):
+        cfg = tsim.SimConfig(m=8, N=512, P=P, policy=policy,
+                             middleware=("fleet_cache",), gossip_ms=100.0,
+                             fleet_routing=True, faults=events,
+                             route_impl=impl)
+        before = (kernel.route_select.launches, kernel.route_tick.launches)
+        st = tsim.init_state(cfg, 0.15, 500.0, device="cuda")
+        runs[impl] = tsim.run_ticks(cfg, st, wl.keys, wl.mask, wl.is_write)
+        n = (kernel.route_select.launches - before[0],
+             kernel.route_tick.launches - before[1])
+        want = (0, 0) if impl == "ref" else (
+            (0, T) if policy == "midas" else (T * P, 0))
+        assert n == want, (impl, n)
+    (fa, oa), (fb, ob) = runs["cuda"], runs["ref"]
+    for f in oa._fields:
+        assert torch.equal(getattr(oa, f), getattr(ob, f)), f
+    la, lb = _leaves(fa), _leaves(fb)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+    assert (oa.arrivals[135:240, 0] == 0).all()

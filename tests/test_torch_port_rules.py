@@ -37,6 +37,9 @@ def test_port_sources_import_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.convert\n"
+        "import repro_torch.core.faults, repro_torch.core.faults.base\n"
+        "import repro_torch.core.faults.events\n"
+        "import repro_torch.core.faults.programs\n"
         "import repro_torch.kernels.midas_route.ops\n"
         "import repro_torch.kernels.midas_route.kernel\n"
         "import repro_torch.kernels.flash_attention.ops\n"
@@ -73,6 +76,26 @@ def test_simulate_without_device_needs_a_card(monkeypatch):
         simulate(SimConfig(m=8, N=64), wl)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_workload("bursty", T=4, m=8, N=64)
+
+
+def test_fault_modules_are_port_sources():
+    """The fault layer's modules are held to the rules above: they are
+    among the checked sources, and the faulted engine needs a card."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("__init__", "base", "events", "programs"):
+        assert f"src/repro_torch/core/faults/{mod}.py" in names
+
+
+def test_faulted_simulate_without_device_needs_a_card(monkeypatch):
+    from repro_torch.core import SimConfig, make_workload, simulate
+    from repro_torch.core.faults import FaultEvent
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = make_workload("bursty", T=30, m=8, N=64, device="cpu")
+    cfg = SimConfig(m=8, N=64, middleware=("fleet_cache",),
+                    faults=(FaultEvent("proxy_crash", t0=5, target=0),))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate(cfg, wl)
 
 
 def test_cuda_route_impl_on_cpu_raises():

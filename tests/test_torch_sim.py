@@ -148,10 +148,21 @@ def _assert_trees_match(want, got):
 
 
 def test_unported_choices_raise_naming_the_roadmap_item():
-    for kw in (dict(faults=("crash",)), dict(unroll_waves=True),
-               dict(middleware=("fleet_cache",), faults=("crash",)),
-               dict(fleet_routing=True, unroll_waves=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the unrolled engine is not ported, alone or with faults (item 7)
+    for kw in (dict(unroll_waves=True),
+               dict(fleet_routing=True, unroll_waves=True),
+               dict(faults=("proxy_crash",), unroll_waves=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
+            tsim.SimConfig(**kw)
+    # faults are ported: registered kinds construct, unknown ones list
+    # the registered kinds
+    for kw in (dict(faults=("proxy_crash",)),
+               dict(middleware=("fleet_cache",), faults=("proxy_crash",))):
+        cfg = tsim.SimConfig(**kw)
+        assert cfg.fault_events[0].kind == "proxy_crash"
+    for kw in (dict(faults=("crash",)),
+               dict(middleware=("fleet_cache",), faults=("crash",))):
+        with pytest.raises(ValueError, match="available: ckpt_storm_fleet"):
             tsim.SimConfig(**kw)
     # the fleet is ported: its choices construct
     for kw in (dict(fleet_routing=True), dict(middleware=("fleet_cache",)),
