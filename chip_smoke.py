@@ -99,6 +99,22 @@ Qwen3-MoE-235B-A22B.  Phases:
    and durations / 6);
    E12's crash headline at its own T = 900, seeds 0 and 1, printed as a
    JSON line;
+13. (run right after phase 12) sweeps at phase 3's constants through
+   ``repro_torch.core.run_sweep``: midas, ``power_of_d`` and
+   ``round_robin`` × the ``hysteresis`` and ``static`` controllers ×
+   the first 100 ticks of phase 3's ``bursty`` grid and a ``storm``
+   grid realized on the card × seeds 0 and 1, with phase 3's targets,
+   under ``metrics="full"`` and then ``"summary"``: exactly 800
+   ``route_tick`` and 6400 ``route_select`` launches a mode and no other
+   kernel, ticks/s by policy (from the sweep's ``sweep/execute`` spans),
+   kernels a tick and peak device memory of each mode; every summary row
+   bit for bit ``summarize`` of its full row; midas × hysteresis ×
+   bursty × seed 1 bit for bit its ``simulate`` and power_of_d × static
+   × storm × seed 0 its single run; E13's ``crash_during_storm``
+   retimed to 100 ticks as a ``faults=`` override on ``fleet_cache``
+   (P = 8, 100 ms gossip) under ``hysteresis`` and ``aimd`` × seeds 0
+   and 1 with the sweep's one warmup: 400 ``route_tick`` launches, each
+   row and its ``FleetState`` bit for bit its ``simulate``;
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
    8 requests of a 512-token prompt and 32 greedy decode steps behind a
@@ -1211,10 +1227,11 @@ def read_counts(counters):
 
 
 def kernels_per_tick(torch, sim, cfg, targets, wl,
-                     lead=PROFILE_LEAD) -> float:
+                     lead=PROFILE_LEAD, metrics="full") -> float:
     """Device kernels a tick of a path, counted by torch.profiler over
     ticks ``lead`` to ``lead`` + PROFILE_TICKS (their horizon set-up
-    included), as benchmarks_torch/profile_main_path.py counts them."""
+    included) in the given metrics mode, as
+    benchmarks_torch/profile_main_path.py counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     lo, hi = lead, lead + PROFILE_TICKS
@@ -1225,7 +1242,7 @@ def kernels_per_tick(torch, sim, cfg, targets, wl,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         sim.run_ticks(cfg, st, wl.keys[lo:hi], wl.mask[lo:hi],
-                      wl.is_write[lo:hi], t0=lo)
+                      wl.is_write[lo:hi], t0=lo, metrics=metrics)
         torch.cuda.synchronize()
     n = sum(e.device_type == torch.autograd.DeviceType.CUDA
             for e in prof.events())
@@ -2085,6 +2102,198 @@ def phase_faults(torch, np, core, sim, counters, wl3):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: sweeps at full width -- SweepSpec / run_sweep in both metrics
+# modes, the cells one after another through the engine
+# ---------------------------------------------------------------------------
+
+SWEEP_TICKS = 100
+SWEEP_POLICIES = ("midas", "power_of_d", "round_robin")
+SWEEP_CONTROLLERS = ("hysteresis", "static")
+SWEEP_SEEDS = (0, 1)
+SWEEP_PROFILE_LEAD = 50  # kernels a tick over ticks 50-100 of one cell
+# E13's crash_during_storm (benchmarks/redteam.py: a storm over 400-700
+# with a crash of server 0 over 450-650, of 1200 ticks) retimed to 100
+E13_SWEEP = dict(FULL, policy="midas", middleware=("fleet_cache",), P=8,
+                 gossip_ms=100.0, cache_mode="lease")
+E13_CONTROLLERS = ("hysteresis", "aimd")
+SUMMARY_FIELDS = ("n_ticks", "queue_sum", "queue_max_v", "cv_sum",
+                  "cv_count", "queue_hist", "lat_hist", "arrivals_total",
+                  "steered_total", "eligible_total", "cache_hits_total",
+                  "d_timeline", "delta_l_timeline", "f_max_timeline",
+                  "pressure", "q_mean_timeline")
+
+
+def rows_equal(np, a, b, fields) -> bool:
+    for f in fields:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            return False
+    return True
+
+
+def stand_alone(sim, cfg, wl, targets):
+    """``simulate``'s own steps for one cell, with ``targets``."""
+    st = sim.init_state(cfg, *targets, device="cuda")
+    final, outs = sim.run_ticks(cfg, st, wl.keys, wl.mask, wl.is_write)
+    return sim._to_result(cfg, outs, sim._final_cache(cfg, final))
+
+
+def e13_storm_crash(faults):
+    ev = faults.FaultEvent
+    return faults.overlap(
+        ev("ckpt_storm_fleet", t0=33, duration=25, magnitude=0.6),
+        ev("proxy_crash", t0=38, duration=17, target=0))
+
+
+def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
+    """Phase 3's constants swept over policies × controllers × (bursty,
+    storm) × seeds in both metrics modes, with phase 3's targets; then
+    E13's crash_during_storm on the fleet cache as a faults= override,
+    with the sweep's own warmup.  Returns the launches (route_tick,
+    route_select)."""
+    from repro_torch.core import faults
+    from repro_torch.obs import trace as obs_trace
+
+    T = SWEEP_TICKS
+    cfg = core.SimConfig(policy="midas", middleware=("cache",),
+                         cache_mode="lease", **FULL)
+    t0 = time.perf_counter()
+    storm = core.make_workload("storm", T=T, m=cfg.m, seed=SEED, N=cfg.N,
+                               R=R_FULL, device="cuda")
+    torch.cuda.synchronize()
+    grids = (plane_grid(wl3, T), storm)
+    say(f"[13] grids: the first {T} ticks of phase 3's bursty grid and a "
+        f"storm grid made on the card ({time.perf_counter() - t0:.2f} s)")
+    res, peak, kpt = {}, {}, {}
+    n_pol = len(SWEEP_CONTROLLERS) * len(grids) * len(SWEEP_SEEDS)
+    for mode in ("full", "summary"):
+        spec = core.SweepSpec(config=cfg, workloads=grids,
+                              policies=SWEEP_POLICIES,
+                              controllers=SWEEP_CONTROLLERS,
+                              seeds=SWEEP_SEEDS, metrics=mode,
+                              targets=targets)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        obs_trace.configure(enabled=True, fresh=True)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        res[mode] = core.run_sweep(spec, device="cuda")
+        secs = time.perf_counter() - t0
+        counts = read_counts(counters)
+        peak[mode] = (torch.cuda.max_memory_allocated(), before)
+        want = dict.fromkeys(counters, 0)
+        want["route_tick"] = n_pol * T
+        want["route_select"] = n_pol * T * cfg.n_groups
+        say(f"[13] launches in the {mode} sweep: {counts} (expected "
+            f"{want['route_tick']} route_tick, {want['route_select']} "
+            f"route_select and no other kernel)")
+        check(counts == want, f"{mode} sweep: {counts}, expected {want}")
+        check(len(res[mode].cells) == spec.n_cells == 3 * n_pol,
+              f"{mode} sweep has {len(res[mode].cells)} rows")
+        spans = [e for e in obs_trace.RECORDER.events
+                 if e["name"] == "sweep/execute"]
+        check(len(spans) == len(SWEEP_POLICIES) * len(SWEEP_CONTROLLERS),
+              f"{len(spans)} sweep/execute spans")
+        rate = {}
+        for p in SWEEP_POLICIES:
+            us = sum(e["dur"] for e in spans if e["args"]["policy"] == p)
+            rate[p] = n_pol * T / (us * 1e-6)
+        kpt[mode] = kernels_per_tick(torch, sim, cfg, targets, grids[0],
+                                     lead=SWEEP_PROFILE_LEAD, metrics=mode)
+        say(f"[13] {mode} sweep, {spec.n_cells} cells x {T} ticks in "
+            f"{secs:.3f} s; ticks/s by policy (sweep/execute spans): "
+            + ", ".join(f"{p} {r:.1f}" for p, r in rate.items())
+            + f"; midas {kpt[mode]:.1f} kernels a tick (ticks "
+            f"{SWEEP_PROFILE_LEAD}-{SWEEP_PROFILE_LEAD + PROFILE_TICKS}); "
+            f"peak allocated {peak[mode][0] / 1e6:.1f} MB "
+            f"({(peak[mode][0] - peak[mode][1]) / 1e6:.1f} MB above the "
+            f"{peak[mode][1] / 1e6:.1f} MB held before); card "
+            f"{card_line()}")
+    full, summ = res["full"], res["summary"]
+    by_name = {w.name: w for w in grids}
+    for coord, row in full.items():
+        check_result(np, row, by_name[coord[2]], T, cfg.m)
+        s = summ.cells[coord]
+        check(all(getattr(s, f).shape == (T,) for f in SUMMARY_FIELDS
+                  if f.endswith("timeline") or f == "pressure"),
+              f"{coord}: a summary trace is not (T,)")
+        check(rows_equal(np, core.summarize(row, device="cuda"), s,
+                         SUMMARY_FIELDS),
+              f"{coord}: the summary row is not summarize of the full row")
+    say(f"[13] every one of the {len(summ.cells)} summary rows is "
+        f"summarize(full row) bit for bit (sums, max, CV sums, both "
+        f"HistSketch histograms, totals, the (T,) knob traces and q_mean); "
+        f"no summary row holds a (T, m) array; peak allocated full "
+        f"{peak['full'][0] / 1e6:.1f} MB, summary "
+        f"{peak['summary'][0] / 1e6:.1f} MB; midas kernels a tick full "
+        f"{kpt['full']:.1f}, summary {kpt['summary']:.1f}")
+    # two rows against their single runs
+    mid = dataclasses.replace(cfg, seed=1)
+    alone = core.simulate(mid, grids[0], device="cuda")
+    check(rows_equal(np, alone, full.row("midas", "hysteresis", "bursty", 1),
+                     FIELDS), "midas x hysteresis x bursty x 1 is not its "
+          "simulate (warmup included: phase 3's targets)")
+    pod = dataclasses.replace(cfg, policy="power_of_d", controller="static")
+    alone = stand_alone(sim, pod, grids[1], targets)
+    check(rows_equal(np, alone, full.row("power_of_d", "static", "storm", 0),
+                     FIELDS), "power_of_d x static x storm x 0 is not its "
+          "single run")
+    say("[13] midas x hysteresis x bursty x seed 1 equals its simulate "
+        "(whose warmup gives phase 3's targets) and power_of_d x static x "
+        "storm x seed 0 its single run with the sweep's targets "
+        "(simulate's steps; simulate gives a non-adaptive policy the "
+        "default targets) bit for bit on every timeline")
+    tick_launches = 2 * n_pol * T
+    pod_launches = 2 * n_pol * T * cfg.n_groups
+
+    # the faulted fleet: a faults= override, the sweep's own warmup
+    t0 = time.perf_counter()
+    program = e13_storm_crash(faults)
+    fcfg = core.SimConfig(**E13_SWEEP)
+    spec = core.SweepSpec(config=fcfg, workloads=grids[0],
+                          controllers=E13_CONTROLLERS, seeds=SWEEP_SEEDS,
+                          faults=program)
+    obs_trace.configure(fresh=True)
+    zero_counts(counters)
+    fres = core.run_sweep(spec, device="cuda")
+    counts = read_counts(counters)
+    want = dict.fromkeys(counters, 0)
+    want["route_tick"] = len(fres.cells) * T
+    check(counts == want, f"faulted sweep: {counts}, expected {want}")
+    sweep_s = time.perf_counter() - t0
+    warmups = [e["name"] for e in obs_trace.RECORDER.events
+               if e["name"].endswith("/warmup")]
+    check(warmups == ["sim/warmup", "sweep/warmup"],
+          f"the faulted sweep's warmup spans are {warmups}")
+    for (p, c, w, seed), row in fres.items():
+        rcfg = dataclasses.replace(spec.config, controller=c, seed=seed)
+        _, st_mask, _ = faults.apply_traffic(
+            faults.compile_faults(rcfg, T), grids[0].keys, grids[0].mask,
+            grids[0].is_write)
+        check_result(np, row, grids[0]._replace(mask=st_mask), T, fcfg.m)
+        check_fleet_counters(row.final_cache, fcfg.P, f"faulted {c} {seed}")
+        alone = core.simulate(rcfg, grids[0], device="cuda")
+        check(rows_equal(np, alone, row, FIELDS),
+              f"faulted sweep {c} x seed {seed} is not its simulate")
+        for i, (x, y) in enumerate(zip(tree_leaves(alone.final_cache),
+                                       tree_leaves(row.final_cache))):
+            check(torch.equal(x, y),
+                  f"faulted sweep {c} x seed {seed}: FleetState leaf {i}")
+    q = fres.row(controller="hysteresis", seed=0).queue_timeline
+    say(f"[13] E13's crash_during_storm retimed to {T} ticks (storm 33-58 "
+        f"mag 0.6, crash of server 0 38-55) as a faults= override on "
+        f"fleet_cache (P={fcfg.P}, gossip {fcfg.gossip_ms:g} ms) at phase "
+        f"3's constants, controllers {E13_CONTROLLERS} x seeds "
+        f"{SWEEP_SEEDS}: {want['route_tick']} route_tick launches and no "
+        f"other kernel; one warmup (its spans) for both controllers; every "
+        f"row and its FleetState bit for bit its simulate (which makes "
+        f"its own warmup); server 0's queue peaked at {q[:, 0].max():.1f} "
+        f"({sweep_s:.1f} s)")
+    return tick_launches + want["route_tick"], pod_launches
+
+
+# ---------------------------------------------------------------------------
 # phases 6-8: serving
 # ---------------------------------------------------------------------------
 
@@ -2497,6 +2706,10 @@ def main() -> int:
         fault_tick, fault_pod = phase_faults(torch, np, core, sim, counters,
                                              wl)
         say(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+        t13 = time.perf_counter()
+        sweep_tick, sweep_pod = phase_sweeps(torch, np, core, sim, counters,
+                                             wl, targets)
+        say(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
         model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
             torch, np, serving, counters, model, tag=6,
@@ -2546,12 +2759,13 @@ def main() -> int:
                                                  "route_select"),
                      REPLACES, launches + plane["route_select"]
                      + claims_launches["route_select"] + fleet_pod
-                     + fault_pod,
+                     + fault_pod + sweep_pod,
                      max_err, main_row),
         kernel_entry("route_tick", csrc.format("midas_route",
                                                "route_select"),
                      TICK_REPLACES, tick_launches + plane["route_tick"]
-                     + FLEET_TICKS + fault_tick, 0.0, tick_row),
+                     + FLEET_TICKS + fault_tick + sweep_tick, 0.0,
+                     tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",

@@ -35,16 +35,21 @@ on a host flag of the compiled schedule, so a run without faults, or
 with a benign one, takes the fault-free engine's operations.
 
 ``simulate`` runs one config and returns a :class:`SimResult` with the
-paper metrics.  The engine runs on the CUDA device unless the caller
-passes ``device="cpu"``.  The unrolled reference engine
-(``unroll_waves``) is not ported and raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+paper metrics.  ``run_ticks(..., metrics="summary")`` folds each tick
+into O(m) accumulators on the device instead of stacking (T, m)
+timelines (:class:`SummaryAcc`, :class:`KnobTrace`); :func:`summarize`
+folds a full result the same way, and ``repro_torch.core.sweep`` runs
+grids of cells in either mode.  The engine runs on the CUDA device
+unless the caller passes ``device="cpu"``.  The unrolled reference
+engine (``unroll_waves``) is not ported and raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+import warnings
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -65,9 +70,12 @@ from repro_torch.core.policies.base import (
     slice_draws,
 )
 from repro_torch.core.workloads import Workload, make_workload
+from repro_torch.core.xla import reduce_sum
 from repro_torch.kernels import common as kernels_common
+from repro_torch.obs import trace as obs_trace
 
 CONSENSUS_REDUCERS = telemetry.CONSENSUS_REDUCERS
+METRICS_MODES = ("full", "summary")
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -240,6 +248,9 @@ class SimResult(NamedTuple):
     def mean_queue(self) -> float:
         return float(self.queue_timeline.mean())
 
+    def max_queue(self) -> float:
+        return float(self.queue_timeline.max())
+
     def worst_case_queue(self, q: float = 99.9) -> float:
         return float(np.percentile(self.queue_timeline, q))
 
@@ -251,9 +262,251 @@ class SimResult(NamedTuple):
             return 0.0
         return float(per_server.std() / mu)
 
+    def dispersion_t(self) -> float:
+        """Time-average of instantaneous CV across servers."""
+        mu = self.queue_timeline.mean(axis=1)
+        sd = self.queue_timeline.std(axis=1)
+        ok = mu > 1e-9
+        if not ok.any():
+            return 0.0
+        return float((sd[ok] / mu[ok]).mean())
+
     def latency_quantiles(self, qs=(50, 99)) -> Tuple[float, ...]:
         """Arrival-weighted request latency quantiles (ms)."""
         return telemetry.weighted_quantiles(self.lat_pred, self.arrivals, qs)
+
+
+# ---------------------------------------------------------------------------
+# Streaming summary metrics (metrics="summary")
+# ---------------------------------------------------------------------------
+
+
+class KnobTrace(NamedTuple):
+    """The per-tick control-plane scalars a summary run keeps: O(T) in
+    all, so knob trajectories survive ``metrics="summary"`` though the
+    (T, m) queue timelines do not.  ``q_mean`` (the across-server mean
+    queue a tick) is the series ``repro_torch.obs.windows`` detects the
+    steady state on, in both metrics modes."""
+
+    d: torch.Tensor  # (T,) int32
+    delta_l: torch.Tensor  # (T,) float32
+    f_max: torch.Tensor  # (T,) float32
+    pressure: torch.Tensor  # (T,) float32
+    q_mean: torch.Tensor  # (T,) float32 across-server mean queue
+
+
+class SummaryAcc(NamedTuple):
+    """O(m) accumulators a summary run carries through the tick loop in
+    place of the stacked (T, m) ``TickOut`` timeline."""
+
+    n_ticks: torch.Tensor  # () int32
+    queue_sum: torch.Tensor  # (m,) per-server queue-length sums
+    queue_max: torch.Tensor  # ()
+    cv_sum: torch.Tensor  # () sum of instantaneous CV over ok ticks
+    cv_count: torch.Tensor  # () number of ok ticks
+    queue_hist: telemetry.HistSketch  # all (t, server) queue samples
+    lat_hist: telemetry.HistSketch  # lat_pred weighted by arrivals
+    arrivals: torch.Tensor  # ()
+    steered: torch.Tensor  # ()
+    eligible: torch.Tensor  # ()
+    cache_hits: torch.Tensor  # ()
+
+
+def _summary_init(m: int, device) -> SummaryAcc:
+    f32 = dict(dtype=torch.float32, device=device)
+    return SummaryAcc(
+        n_ticks=torch.zeros((), dtype=torch.int32, device=device),
+        queue_sum=torch.zeros((m,), **f32),
+        queue_max=torch.zeros((), **f32),
+        cv_sum=torch.zeros((), **f32),
+        cv_count=torch.zeros((), **f32),
+        queue_hist=telemetry.make_hist(device),
+        lat_hist=telemetry.make_hist(device),
+        arrivals=torch.zeros((), **f32),
+        steered=torch.zeros((), **f32),
+        eligible=torch.zeros((), **f32),
+        cache_hits=torch.zeros((), **f32),
+    )
+
+
+def _queue_mean(L: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(L)`` as XLA computes it on the CPU: the sum in its
+    order times the float32 reciprocal of m."""
+    return reduce_sum(L) * float(np.float32(1.0 / L.shape[0]))
+
+
+def _summary_update(
+    acc: SummaryAcc, out: TickOut, mu: Optional[torch.Tensor] = None
+) -> SummaryAcc:
+    """Fold one tick into the accumulators (``mu``: the tick's
+    :func:`_queue_mean`, when the caller has it).
+
+    The instantaneous CV is ``std(L) / mean(L)`` rounded as the
+    reference's jitted update (read off its optimized HLO): the squared
+    deviations from the rounded mean summed in :func:`xla.reduce_sum`'s
+    order (folded into the adds up to m = 32, rounded first above),
+    times 1/m, a correctly rounded square root (float64, rounded once)
+    and a true division; no FMA joins the mean, as no ε is added.  The
+    other sums are of integer counts, exact in any order."""
+    L = out.L
+    inv = float(np.float32(1.0 / L.shape[0]))
+    if mu is None:
+        mu = _queue_mean(L)
+    ok = mu > float(np.float32(1e-9))
+    var = reduce_sum(L - mu, squares=True) * inv
+    sd = torch.sqrt(var.double()).float()
+    cv = torch.where(ok, sd / torch.where(ok, mu, 1.0), 0.0)
+    return SummaryAcc(
+        n_ticks=acc.n_ticks + 1,
+        queue_sum=acc.queue_sum + L,
+        queue_max=torch.maximum(acc.queue_max, L.max()),
+        cv_sum=acc.cv_sum + cv,
+        cv_count=acc.cv_count + ok.float(),
+        queue_hist=telemetry.hist_add(acc.queue_hist, L, torch.ones_like(L)),
+        lat_hist=telemetry.hist_add(acc.lat_hist, out.lat_pred,
+                                    out.arrivals),
+        arrivals=acc.arrivals + out.arrivals.sum(),
+        steered=acc.steered + out.steered,
+        eligible=acc.eligible + out.eligible,
+        cache_hits=acc.cache_hits + out.cache_hits,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SummaryResult:
+    """Streaming summary of one (policy, workload, seed) run.
+
+    The same paper-metric API as :class:`SimResult`, so callers need
+    not know the metrics mode.  Mean, max and dispersion are exact up to
+    the float32 sums; worst-case and latency quantiles come from
+    :class:`telemetry.HistSketch` (bin resolution).  A summary row equals
+    :func:`summarize` of the same run's full row bit for bit."""
+
+    n_ticks: int
+    queue_sum: np.ndarray  # (m,)
+    queue_max_v: float
+    cv_sum: float
+    cv_count: float
+    queue_hist: np.ndarray  # (HIST_BINS + 2,)
+    lat_hist: np.ndarray  # (HIST_BINS + 2,)
+    arrivals_total: float
+    steered_total: float
+    eligible_total: float
+    cache_hits_total: float
+    config: SimConfig
+    # control-plane trajectories (KnobTrace): O(T) scalars per run
+    d_timeline: Optional[np.ndarray] = None  # (T,)
+    delta_l_timeline: Optional[np.ndarray] = None  # (T,)
+    f_max_timeline: Optional[np.ndarray] = None  # (T,)
+    pressure: Optional[np.ndarray] = None  # (T,)
+    q_mean_timeline: Optional[np.ndarray] = None  # (T,) mean queue
+
+    # ---- paper metrics (SimResult-compatible) --------------------------
+    def mean_queue(self) -> float:
+        n = max(self.n_ticks * self.queue_sum.shape[0], 1)
+        return float(self.queue_sum.sum() / n)
+
+    def max_queue(self) -> float:
+        return float(self.queue_max_v)
+
+    def worst_case_queue(self, q: float = 99.9) -> float:
+        return telemetry.hist_quantile(self.queue_hist, q)
+
+    def dispersion(self) -> float:
+        """CV of per-server time-averaged queue length (paper §VI-C)."""
+        per_server = self.queue_sum / max(self.n_ticks, 1)
+        mu = per_server.mean()
+        if mu < 1e-9:
+            return 0.0
+        return float(per_server.std() / mu)
+
+    def dispersion_t(self) -> float:
+        """Time-average of instantaneous CV across servers."""
+        if self.cv_count <= 0:
+            return 0.0
+        return float(self.cv_sum / self.cv_count)
+
+    def latency_quantiles(self, qs=(50, 99)) -> Tuple[float, ...]:
+        """Arrival-weighted latency quantiles (ms), sketch resolution."""
+        return tuple(telemetry.hist_quantile(self.lat_hist, q) for q in qs)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _to_summary(
+    cfg: SimConfig, acc: SummaryAcc, trace: Optional[KnobTrace] = None
+) -> SummaryResult:
+    """Host-side SummaryResult from a SummaryAcc (and its KnobTrace)."""
+    return SummaryResult(
+        n_ticks=int(acc.n_ticks),
+        queue_sum=_host(acc.queue_sum),
+        queue_max_v=float(acc.queue_max),
+        cv_sum=float(acc.cv_sum),
+        cv_count=float(acc.cv_count),
+        queue_hist=_host(acc.queue_hist.counts),
+        lat_hist=_host(acc.lat_hist.counts),
+        arrivals_total=float(acc.arrivals),
+        steered_total=float(acc.steered),
+        eligible_total=float(acc.eligible),
+        cache_hits_total=float(acc.cache_hits),
+        config=cfg,
+        d_timeline=None if trace is None else _host(trace.d),
+        delta_l_timeline=None if trace is None else _host(trace.delta_l),
+        f_max_timeline=None if trace is None else _host(trace.f_max),
+        pressure=None if trace is None else _host(trace.pressure),
+        q_mean_timeline=None if trace is None else _host(trace.q_mean),
+    )
+
+
+def _reduce_ticks(m: int, outs: TickOut) -> SummaryAcc:
+    """Fold a stacked (T, ...) TickOut through the summary accumulators,
+    tick by tick: the updates a summary run makes in its loop."""
+    acc = _summary_init(m, outs.L.device)
+    for t in range(outs.L.shape[0]):
+        acc = _summary_update(acc, TickOut(*(x[t] for x in outs)))
+    return acc
+
+
+def summarize(result: SimResult, device=None) -> SummaryResult:
+    """Reduce a full-timeline result through the same accumulators as
+    ``metrics="summary"``, on ``device`` (the card when None): a summary
+    row equals ``summarize`` of the same run's full row bit for bit."""
+    dev = kernels_common.resolve_device(device)
+    T, m = result.queue_timeline.shape
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    zeros = torch.zeros((T,), dtype=torch.float32, device=dev)
+    outs = TickOut(
+        L=f32(result.queue_timeline),
+        arrivals=f32(result.arrivals),
+        lat_pred=f32(result.lat_pred),
+        d=torch.zeros((T,), dtype=torch.int32, device=dev),
+        delta_l=zeros,
+        f_max=zeros,
+        pressure=zeros,
+        steered=f32(result.steered),
+        eligible=f32(result.eligible),
+        cache_hits=f32(result.cache_hits),
+        dV=zeros,
+    )
+    f_max_tl = (
+        np.zeros_like(np.asarray(result.d_timeline, np.float32))
+        if result.f_max_timeline is None
+        else np.asarray(result.f_max_timeline)
+    )
+    trace = KnobTrace(
+        d=np.asarray(result.d_timeline),
+        delta_l=np.asarray(result.delta_l_timeline),
+        f_max=f_max_tl,
+        pressure=np.asarray(result.pressure),
+        # the same mean as a summary run's loop: bit for bit
+        q_mean=torch.stack([_queue_mean(L) for L in outs.L]),
+    )
+    return _to_summary(result.config, _reduce_ticks(m, outs), trace)
 
 
 # ---------------------------------------------------------------------------
@@ -675,16 +928,24 @@ def run_ticks(
     mask: torch.Tensor,
     is_write: torch.Tensor,
     t0: int = 0,
-) -> Tuple[SimState, TickOut]:
+    metrics: str = "full",
+):
     """Run the (T, R) grid from ``state`` on the grid's device; returns
-    the final state and the (T, ...) stacked per-tick outputs, still on
-    the device.  ``t0`` is the tick clock of the grid's first row, so a
-    run can resume from the state another run returned.  The (N,)
-    tables of ``state`` are updated in place.
+    the final state and, under ``metrics="full"``, the (T, ...) stacked
+    per-tick outputs (a ``TickOut``), still on the device.  ``t0`` is
+    the tick clock of the grid's first row, so a run can resume from the
+    state another run returned.  The (N,) tables of ``state`` are
+    updated in place.
+
+    Under ``metrics="summary"`` each tick is folded into O(m)
+    accumulators on the device, and the second value is the pair
+    (``SummaryAcc``, ``KnobTrace``): no (T, m) timeline is stacked and
+    nothing is read back to the host in the loop.
 
     A fault schedule is compiled over this grid from its first row, as
     the reference compiles it over its scan, so a faulted run cannot
     resume mid-schedule: ``t0`` must then be 0."""
+    registry_lib.validate_choice(metrics, "metrics mode", METRICS_MODES)
     dev = keys.device
     fc = faults_lib.compile_faults(cfg, int(keys.shape[0]))
     if fc is not None and t0 != 0:
@@ -708,15 +969,24 @@ def run_ticks(
         rate=torch.full((cfg.m,), cfg.serve_per_tick, dtype=torch.float32,
                         device=dev),
     )
-    outs: List[TickOut] = []
+    if keys.shape[0] == 0:
+        raise ValueError("the workload grid has no ticks")
+    acc = _summary_init(cfg.m, dev) if metrics == "summary" else None
+    rows: List[tuple] = []  # TickOuts, or the summary's knob scalars
     for t in range(keys.shape[0]):
         state, out = _tick(
             cfg, policy, mws, controller, impl, consts, hz, t, state
         )
-        outs.append(out)
-    if not outs:
-        raise ValueError("the workload grid has no ticks")
-    return state, TickOut(*(torch.stack(f) for f in zip(*outs)))
+        if acc is None:
+            rows.append(out)
+        else:
+            mu = _queue_mean(out.L)
+            acc = _summary_update(acc, out, mu)
+            rows.append((out.d, out.delta_l, out.f_max, out.pressure, mu))
+    stacked = (torch.stack(f) for f in zip(*rows))
+    if acc is None:
+        return state, TickOut(*stacked)
+    return state, (acc, KnobTrace(*stacked))
 
 
 def warmup(
@@ -740,11 +1010,13 @@ def warmup(
         cfg, policy="hash", cache_enabled=False, middleware=(), faults=None
     )
     st = init_state(warm_cfg, device=dev)
-    _, outs = run_ticks(
-        warm_cfg, st, wl.keys.to(dev), wl.mask.to(dev),
-        wl.is_write.to(dev),
-    )
-    L = outs.L.cpu().numpy()
+    with obs_trace.span("sim/warmup", cat="warmup", T=int(wl.keys.shape[0]),
+                        m=cfg.m):
+        _, outs = run_ticks(
+            warm_cfg, st, wl.keys.to(dev), wl.mask.to(dev),
+            wl.is_write.to(dev),
+        )
+        L = outs.L.cpu().numpy()
     # EWMA'd imbalance series, the same smoothing as the controller
     L_hat = telemetry.ewma_series(L, ctrl_lib.ALPHA_FAST)
     B = L_hat.std(axis=1) / (L_hat.mean(axis=1) + ctrl_lib.EPS)
@@ -802,7 +1074,72 @@ def simulate(
     kernels_common.resolve_impl(cfg.route_impl, dev, "route_impl")
     b_tgt, p99_tgt = _targets(cfg, do_warmup, dev)
     state = init_state(cfg, b_tgt, p99_tgt, dev)
-    final, outs = run_ticks(
-        cfg, state, wl.keys.to(dev), wl.mask.to(dev), wl.is_write.to(dev)
+    with obs_trace.span("sim/run", cat="execute", policy=cfg.policy,
+                        controller=cfg.controller,
+                        T=int(wl.keys.shape[0])):
+        final, outs = run_ticks(
+            cfg, state, wl.keys.to(dev), wl.mask.to(dev),
+            wl.is_write.to(dev)
+        )
+        _synchronize(dev)
+    with obs_trace.span("sim/host_result", cat="host"):
+        return _to_result(cfg, outs, _final_cache(cfg, final))
+
+
+def _synchronize(dev: torch.device) -> None:
+    """Wait for the card, so that a span around queued work times the
+    work and not its enqueue; nothing on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# per-seed rows of one (policy, workload) combination
+SweepRows = Tuple[Union[SimResult, SummaryResult], ...]
+
+# Once-per-process guard of simulate_sweep's DeprecationWarning: sweeps
+# call the shim in loops, and one warning a process is enough.  Tests
+# reset it to check the exactly-once contract.
+_SWEEP_DEPRECATION_WARNED = [False]
+
+
+def simulate_sweep(
+    cfg: SimConfig,
+    wl: Union[Workload, Sequence[Workload]],
+    policies: Optional[Tuple[str, ...]] = None,
+    seeds: Tuple[int, ...] = (0,),
+    do_warmup: bool = True,
+    metrics: str = "full",
+    targets: Optional[Tuple[float, float]] = None,
+    device=None,
+) -> Union[Dict[str, SweepRows], Dict[str, Dict[str, SweepRows]]]:
+    """Run ``policies × workloads × seeds`` and return the legacy shapes:
+    ``{policy: (row per seed, ...)}`` for a single workload and
+    ``{policy: {workload_name: (row per seed, ...)}}`` for a sequence.
+
+    .. deprecated::
+        A shim over the declarative API: build a
+        :class:`repro_torch.core.sweep.SweepSpec` and call
+        :func:`repro_torch.core.sweep.run_sweep`, which adds the
+        controller axis and a coordinate-addressable result.
+    """
+    if not _SWEEP_DEPRECATION_WARNED[0]:
+        _SWEEP_DEPRECATION_WARNED[0] = True
+        warnings.warn(
+            "simulate_sweep is deprecated; build a repro_torch.core.sweep."
+            "SweepSpec and call run_sweep",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+    from repro_torch.core import sweep as sweep_lib
+
+    single = isinstance(wl, Workload)
+    spec = sweep_lib.SweepSpec(
+        config=cfg,
+        workloads=wl,
+        policies=tuple(policies) if policies is not None else None,
+        seeds=tuple(seeds),
+        metrics=metrics,
+        do_warmup=do_warmup,
+        targets=targets,
     )
-    return _to_result(cfg, outs, _final_cache(cfg, final))
+    return sweep_lib.run_sweep(spec, device=device).to_legacy(single=single)

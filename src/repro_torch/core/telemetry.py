@@ -8,13 +8,15 @@ the valid window.  :func:`ewma_series` and :func:`weighted_quantiles`
 are host-side numpy, shared with the warmup pass and ``SimResult``.
 
 The device functions never read a value back to the host, so the
-engine can call them every tick without a synchronisation.  The
-streaming ``HistSketch`` of the summary metrics comes with the sweep
-engine.
+engine can call them every tick without a synchronisation.
+:class:`HistSketch` is the streaming histogram of the summary metrics
+(``metrics="summary"``): O(HIST_BINS) on the device however many
+samples stream through, read on the host by :func:`hist_quantile`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -235,3 +237,80 @@ def reduce_views(views_p: torch.Tensor, reducer: str = "mean") -> torch.Tensor:
         f"unknown consensus reducer {reducer!r}; available: "
         f"{', '.join(CONSENSUS_REDUCERS)}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Streaming histogram sketch (metrics="summary" accumulator)
+# ---------------------------------------------------------------------------
+
+HIST_BINS = 512
+HIST_LO = 1e-2
+HIST_HI = 1e6
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_edges() -> np.ndarray:
+    """Log-spaced bin edges shared by every sketch (host constant,
+    float64)."""
+    return np.geomspace(HIST_LO, HIST_HI, HIST_BINS + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _edges_on(device: torch.device) -> torch.Tensor:
+    """The edges as the reference's ``jnp.asarray`` holds them: the
+    float64 grid rounded to float32, copied to ``device`` once."""
+    return torch.from_numpy(_hist_edges().astype(np.float32)).to(device)
+
+
+class HistSketch(NamedTuple):
+    """Streaming weighted histogram over a fixed log-spaced grid.
+
+    ``counts[0]`` is the underflow bin (values below HIST_LO, the exact
+    zeros of a queue timeline among them) and ``counts[-1]`` the
+    overflow bin (values at or above HIST_HI).  Quantiles are
+    bin-resolution approximations (geometric bin midpoints); the exact
+    ones are :func:`weighted_quantiles` over a full timeline."""
+
+    counts: torch.Tensor  # (HIST_BINS + 2,) float32 weighted bin counts
+
+
+def make_hist(device=None) -> HistSketch:
+    """An empty sketch on ``device`` (the card when None)."""
+    return HistSketch(counts=torch.zeros(
+        (HIST_BINS + 2,), dtype=torch.float32,
+        device=resolve_device(device)))
+
+
+def hist_add(
+    sk: HistSketch, values: torch.Tensor, weights: torch.Tensor
+) -> HistSketch:
+    """Add ``weights`` at the bins of ``values`` (any shape).
+
+    The bin is the reference's ``searchsorted(edges, v, side="right")``:
+    the edges increase strictly, so the upper bound
+    ``torch.searchsorted(..., right=True)`` finds the same bin as jnp's
+    fixed-step bisection.  The scatter is ``index_add`` with atomics on
+    the card, so the order of the adds varies; the engine's weights are
+    ones (queue samples) and arrival counts, so every partial sum is an
+    integer below 2**24 and exact in any order."""
+    b = torch.searchsorted(_edges_on(values.device), values.reshape(-1),
+                           right=True)
+    counts = sk.counts.index_add(0, b, weights.reshape(-1).float())
+    return HistSketch(counts=counts)
+
+
+def hist_quantile(counts: np.ndarray, q: float) -> float:
+    """Approximate weight-CDF quantile from sketch counts (host-side):
+    the geometric midpoint of the first bin whose cumulative weight
+    reaches q/100.  Zero total weight returns 0.0."""
+    counts = np.asarray(counts, np.float64)
+    total = counts.sum()
+    if total <= 0:
+        return 0.0
+    edges = _hist_edges()
+    reps = np.concatenate(
+        ([0.0], np.sqrt(edges[:-1] * edges[1:]), [edges[-1]])
+    )
+    cum = np.cumsum(counts)
+    idx = int(np.searchsorted(cum, (q / 100.0) * total))
+    return float(reps[min(idx, reps.size - 1)])

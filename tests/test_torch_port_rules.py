@@ -40,6 +40,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.faults, repro_torch.core.faults.base\n"
         "import repro_torch.core.faults.events\n"
         "import repro_torch.core.faults.programs\n"
+        "import repro_torch.core.sweep, repro_torch.obs\n"
+        "import repro_torch.obs.trace, repro_torch.obs.windows\n"
         "import repro_torch.kernels.midas_route.ops\n"
         "import repro_torch.kernels.midas_route.kernel\n"
         "import repro_torch.kernels.flash_attention.ops\n"
@@ -86,6 +88,15 @@ def test_fault_modules_are_port_sources():
         assert f"src/repro_torch/core/faults/{mod}.py" in names
 
 
+def test_sweep_and_obs_modules_are_port_sources():
+    """The sweep engine and the observability plane are held to the
+    rules above: they are among the checked sources."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "src/repro_torch/core/sweep.py" in names
+    for mod in ("__init__", "trace", "windows"):
+        assert f"src/repro_torch/obs/{mod}.py" in names
+
+
 def test_faulted_simulate_without_device_needs_a_card(monkeypatch):
     from repro_torch.core import SimConfig, make_workload, simulate
     from repro_torch.core.faults import FaultEvent
@@ -107,12 +118,26 @@ def test_cuda_route_impl_on_cpu_raises():
                  do_warmup=False, device="cpu")
 
 
+def _tiny_result():
+    import numpy as np
+
+    from repro_torch.core import sim
+
+    z = np.zeros((4, 8), np.float32)
+    t = np.zeros((4,), np.float32)
+    return sim.SimResult(
+        queue_timeline=z, arrivals=z, lat_pred=z,
+        d_timeline=t.astype(np.int32), delta_l_timeline=t, pressure=t,
+        steered=t, eligible=t, cache_hits=t, final_cache=None,
+        config=sim.SimConfig(m=8, N=64))
+
+
 def _constructors():
     """(name, call without a device) of every public constructor and
     entry point that builds tensors."""
     from repro_torch import convert, models
     from repro_torch.config import RunConfig, get_smoke_arch
-    from repro_torch.core import fleet, hashring, prng, telemetry
+    from repro_torch.core import fleet, hashring, prng, sim, sweep, telemetry
     from repro_torch.core.controllers import base as controllers
     from repro_torch.core.policies import midas
     from repro_torch.core.workloads import base as workloads
@@ -125,6 +150,12 @@ def _constructors():
         ("make_ring", lambda: hashring.make_ring(8, 4)),
         ("PRNGKey", lambda: prng.PRNGKey(0)),
         ("make_sketch", lambda: telemetry.make_sketch(8)),
+        ("make_hist", lambda: telemetry.make_hist()),
+        ("summarize", lambda: sim.summarize(_tiny_result())),
+        ("run_sweep", lambda: sweep.run_sweep(sweep.SweepSpec(
+            config=sim.SimConfig(m=8, N=64), do_warmup=False,
+            workloads=workloads.make_workload("bursty", T=4, m=8, N=64,
+                                              device="cpu")))),
         ("init_knobs", lambda: controllers.init_knobs(2.0)),
         ("init_midas", lambda: midas.init_midas(16, 4)),
         ("init_fleet", lambda: fleet.init_fleet(16, 2, 1)),
