@@ -6,13 +6,14 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout,
-holds each against its plain PyTorch version, drives the port's four
-paths at full width and checks what comes out: the simulator
+holds each against its plain PyTorch version, drives the port's paths
+at full width and checks what comes out: the simulator
 (``repro_torch.core.simulate``: MIDAS routing, the cooperative cache,
-the hysteresis controller, the ``bursty`` workload) and serving
-(``repro_torch.launch.serve.serve``: the MIDAS router in front of
-prefill and greedy decode) of SmolLM-360M, falcon-mamba-7b and
-Qwen3-MoE-235B-A22B.  Phases:
+the hysteresis controller, the ``bursty`` workload; under both engines)
+and serving (``repro_torch.launch.serve.serve``: the MIDAS router in
+front of prefill and greedy decode) of SmolLM-360M, falcon-mamba-7b,
+Qwen3-MoE-235B-A22B, MusicGen-Large and LLaVA-NeXT-Mistral-7B.
+Phases:
 
 1. card and build: the card's name and power limit, the five sources
    built at once (one nvcc each);
@@ -34,7 +35,9 @@ Qwen3-MoE-235B-A22B.  Phases:
    bitwise;
    ``flash_attention`` also at Qwen3-MoE's prefill shape, with its bound
    on the tensor cores and the CUDA cores' beside it, and bitwise equal
-   on a repeated call; ``dispatch_steer`` against
+   on a repeated call; both attention kernels also at phase 15's
+   shapes (MusicGen's 32 heads over 32 KV heads at D = 64, LLaVA's 32
+   over 8 at D = 128 with 1088 prompt positions); ``dispatch_steer`` against
    ``ref.steer_from_candidates`` on the same candidates (f_max below 1,
    0 and 1, one token, 5000 tokens), the whole dispatch at both f_max
    called from Python, and the launch floor (a one-element op in the
@@ -46,43 +49,44 @@ Qwen3-MoE-235B-A22B.  Phases:
    ticks); then 400 ticks of ``power_of_d`` at the same constants,
    counting one ``route_select`` launch a wave and equal bit for bit to
    its plain run;
-4. the midas run's first 600 ticks with the plain wave loop in place of
+4. the midas run's first 300 ticks with the plain wave loop in place of
    the kernel, which must give the same timelines, dV and final state
    bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
 10. (run right after phase 5) the evaluation plane at phase 3's
-   constants and grid, 150 ticks each: ``chbl`` (one ``route_select``
-   launch a wave, 1200), and midas + cache under the ``no_margin``,
+   constants and grid, 100 ticks each: ``chbl`` (one ``route_select``
+   launch a wave, 800), and midas + cache under the ``no_margin``,
    ``no_pin`` and ``no_bucket`` ablations, the ``aimd``,
    ``deadband_pid`` and ``static`` controllers and the oscillation
-   guard (one ``route_tick`` launch a tick, 150 each), every one bit for
+   guard (one ``route_tick`` launch a tick, 100 each), every one bit for
    bit its plain run; ``round_robin``, ``rr_request``, ``uniform`` and
    ``jsq``, which launch no kernel; phase 5's card-vs-CPU run for every
    new policy and control law, and a 1200-tick guard run whose trips
    the card and the CPU count alike; E1/E2 (``round_robin`` against
-   ``power_of_d`` on the paper's five workloads at m = 8, cut to 300
+   ``power_of_d`` on the paper's five workloads at m = 8, cut to 200
    ticks from the paper's 3000) with the four claims and both ticks/s;
 11. (run right after phase 10) the fleet path, E9's: the
    ``rename_storm`` scenario realized on the card at phase 3's
    constants, served by P = 8 proxies (``fleet_cache``, 100 ms gossip,
    a lag ring of 2 ticks over the 10**6 keys, lease mode) with fleet
    routing (each proxy routes its own wave on its own staggered view),
-   400 ticks with warmup: exactly 400 ``route_tick`` launches (the
+   300 ticks with warmup: exactly 300 ``route_tick`` launches (the
    kernel's per-wave base views), its ticks/s and kernels a tick; the
    plain wave loop bit for bit on every output, dV and the final state
    (the per-proxy counters summing to the aggregates); the Δ = 0
    contract (a gossip_ms = 0 fleet without fleet routing equals the
-   shared cache bit for bit); 200 ticks of ``power_of_d`` under fleet
-   routing (exactly 1600 ``route_select`` launches, bitwise its plain
+   shared cache bit for bit); 100 ticks of ``power_of_d`` under fleet
+   routing (exactly 800 ``route_select`` launches, bitwise its plain
    run); the card against the CPU at m = 8, T = 200 on CPU-realized
    grids of the E9 scenarios, ``multi_tenant``, ``adversarial`` and
    ``trace_replay``, over the nine (gossip, cache mode) cells of E9;
 12. (run right after phase 11) the fault layer: E12's scenario (the
-   first 400 ticks of phase 3's ``bursty`` grid) at phase 11's
+   first 300 ticks of phase 3's ``bursty`` grid) at phase 11's
    constants under E13's three compound programs applied together
    (a checkpoint storm with a server crash, rolling brownouts, a crash
    whose detection cascades into a fleet-wide gossip partition),
-   retimed to 400 ticks, with warmup: exactly 400 ``route_tick``
+   retimed to 400 ticks and run over 300, with warmup: exactly 300
+   ``route_tick``
    launches, bitwise its plain run on every output and the whole final
    ``FleetState``; the schedule's two epoch flips, remap invalidation on
    exactly those ticks; no arrivals to the dead server once detected
@@ -90,22 +94,22 @@ Qwen3-MoE-235B-A22B.  Phases:
    rejoins; ``avail`` below ``AVAIL_FULL`` on exactly the degraded
    ticks; the per-proxy counters summing to the aggregates; ticks/s and
    kernels a tick (torch.profiler, ticks 150-200 inside the fault
-   window and 350-400 after it); 200 ticks of ``power_of_d`` under the
-   same program (exactly 1600 ``route_select`` launches, bitwise); zero
+   window and 250-300 after it); 100 ticks of ``power_of_d`` under the
+   same program (exactly 800 ``route_select`` launches, bitwise); zero
    cost when off (``faults=()`` and a benign event equal ``None`` bit
    for bit over 100 ticks) and ``proxy_join`` bitwise its plain run;
    the card against the CPU over E12's six fault blocks, each under one
    of three (policy, controller) cells in turn, at m = 8 (T = 150, t0
    and durations / 6);
-   E12's crash headline at its own T = 900, seeds 0 and 1, printed as a
-   JSON line;
+   E12's crash headline at its own T = 900, seed 0 (E12 averages
+   seeds 0 and 1), printed as a JSON line;
 13. (run right after phase 12) sweeps at phase 3's constants through
    ``repro_torch.core.run_sweep``: midas, ``power_of_d`` and
    ``round_robin`` × the ``hysteresis`` and ``static`` controllers ×
-   the first 100 ticks of phase 3's ``bursty`` grid and a ``storm``
+   the first 50 ticks of phase 3's ``bursty`` grid and a ``storm``
    grid realized on the card × seeds 0 and 1, with phase 3's targets,
-   under ``metrics="full"`` and then ``"summary"``: exactly 800
-   ``route_tick`` and 6400 ``route_select`` launches a mode and no other
+   under ``metrics="full"`` and then ``"summary"``: exactly 400
+   ``route_tick`` and 3200 ``route_select`` launches a mode and no other
    kernel, ticks/s by policy (from the sweep's ``sweep/execute`` spans),
    kernels a tick and peak device memory of each mode; every summary row
    bit for bit ``summarize`` of its full row; midas × hysteresis ×
@@ -114,7 +118,22 @@ Qwen3-MoE-235B-A22B.  Phases:
    retimed to 100 ticks as a ``faults=`` override on ``fleet_cache``
    (P = 8, 100 ms gossip) under ``hysteresis`` and ``aimd`` × seeds 0
    and 1 with the sweep's one warmup: 400 ``route_tick`` launches, each
-   row and its ``FleetState`` bit for bit its ``simulate``;
+   row and its ``FleetState`` bit for bit its single run (``simulate``'s
+   steps after one warmup of the config);
+14. (run right after phase 13) the unrolled-waves engine
+   (``SimConfig(unroll_waves=True)``, E10's "before"): its warmup on
+   300 ticks of the light grid equal to the hoisted engine's; with phase
+   3's targets, midas + cache + hysteresis on the first 150 ticks of
+   phase 3's grid, exactly 1200 ``route_select`` launches (one a wave)
+   and no ``route_tick``, every per-tick output and the final state bit
+   for bit the hoisted engine's run (150 ``route_tick``), ticks/s and
+   kernels a tick of both engines; phase 12's faulted fleet with every
+   time of E13's programs / 4, 100 ticks: 800 ``route_select`` against
+   100 ``route_tick``, bitwise, ``FleetState`` included;
+   ``theory.balls_into_bins`` at n = m = 64, d = 1, 2, 30 trials on the
+   card bitwise the CPU's, and the gaps as the reference claims; a
+   trace and an artifact under ``build/unrolled/``, read back by
+   ``python -m repro_torch.obs.report`` (``--check`` exits 0);
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
    8 requests of a 512-token prompt and 32 greedy decode steps behind a
@@ -122,12 +141,13 @@ Qwen3-MoE-235B-A22B.  Phases:
    same run with the plain attention gives the same tokens, and
    teacher-forced logits of the two agree;
 7. a small serving run at the smoke configs on the card against the
-   same run on the CPU (falcon-mamba's, the MoE models' and jamba's
+   same run on the CPU (MusicGen's and LLaVA's frontends among them;
+   falcon-mamba's, the MoE models' and jamba's
    tokens under the margin rule of phase 8, and their teacher-forced
    logits, on a float32 cache, within the CPU tests' 1e-4);
 8. serving at falcon-mamba-7b's full width (d_model 4096, d_inner
-   8192, d_state 16) cut to 32 of its 64 Mamba-1 layers (random weights
-   from seed 0, 15.6 GB in float32) with phase 6's traffic, counting
+   8192, d_state 16) cut to 16 of its 64 Mamba-1 layers (random weights
+   from seed 0, 8.9 GB in float32) with phase 6's traffic, counting
    ``chunk_scan``'s launches (one per layer and 128-token chunk of
    each prompt; decode is plain PyTorch, as in the reference); the
    same run with the plain scan gives the same tokens wherever the
@@ -136,8 +156,8 @@ Qwen3-MoE-235B-A22B.  Phases:
    float32 cache too);
 9. serving at Qwen3-MoE-235B-A22B's full width (d_model 4096, 64 query
    heads over 4 KV heads, head_dim 128, 128 experts top-8 of width
-   1536, midas_d 2, f_max 0.25, vocab 151936) cut to 4 of its 94
-   layers (11.19 B parameters, 44.8 GB in float32, random from seed
+   1536, midas_d 2, f_max 0.25, vocab 151936) cut to 2 of its 94
+   layers (6.22 B parameters, 24.9 GB in float32, random from seed
    0) with phase 6's traffic, counting ``dispatch_candidates`` and
    ``dispatch_steer`` (one launch each per layer per prefill and per
    decode step), both attention kernels and no other; tokens under the
@@ -145,7 +165,16 @@ Qwen3-MoE-235B-A22B.  Phases:
    balanced, so nothing
    steers, as in the reference; then 2 requests through the f_max = 1
    variant on the same weights, which launches ``dispatch_fused``
-   instead; decode ms a token of both.
+   instead; decode ms a token of both;
+15. (run right after phase 9) the audio and vision frontends at full
+   width, random weights from seed 0, 4 requests and 16 greedy decode
+   steps behind a 4-replica router: MusicGen-Large at full depth (48
+   layers, d_model 2048; 512 frame embeddings a request; exactly 192
+   ``flash_attention`` and 3072 ``decode_attention`` launches) and
+   LLaVA-NeXT-Mistral-7B at full width cut to 8 of 32 layers (576 patch
+   embeddings + 512 tokens a request; 32 and 512 launches); tokens equal
+   between the kernel and the plain attention, teacher-forced logits
+   within 2e-2.
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -172,7 +201,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FULL = dict(m=64, N=1_000_000, V=64, d_max=4, n_groups=8)
 T_FULL, R_FULL, SEED = 1200, 512, 0
-PARITY_TICKS = 600  # phase 4 compares the first half of the horizon
+PARITY_TICKS = 300  # phase 4 compares the first quarter, for time
 POD_TICKS = 400  # the power_of_d run of phase 3
 PROFILE_LEAD, PROFILE_TICKS = 400, 50  # phase 3's kernels-a-tick window
 REPLACES = "src/repro/kernels/midas_route/kernel.py:319"
@@ -192,11 +221,12 @@ EXP_PER_S = 16 * 132 * 1.98e9
 SCAN_TOL = 1e-4  # chunk_scan vs its plain version, rel + abs
 N_TIMED = 1000  # back-to-back calls per host-side timing
 N_GRAPH = 200  # calls per CUDA graph for device timing
-# MoE serving (phase 9): Qwen3-MoE-235B-A22B at full width, depth cut
-MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
-# SSM serving (phase 8): falcon-mamba-7b at full width, depth cut in half
-# for time
-SSM_ARCH, SSM_LAYERS = "falcon-mamba-7b", 32
+# MoE serving (phase 9): Qwen3-MoE-235B-A22B at full width, depth cut to
+# 2 of 94 layers for time (the weights are made on the host)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+# SSM serving (phase 8): falcon-mamba-7b at full width, depth cut to 16
+# of 64 layers for time
+SSM_ARCH, SSM_LAYERS = "falcon-mamba-7b", 16
 MOE_FUSED_REQUESTS = 2  # the f_max = 1 variant's run
 W_TOL = 1e-6  # dispatch weights, kernel vs plain (absolute)
 
@@ -679,7 +709,10 @@ def phase_member_route(torch, np, sim, kernel, ref):
 # prefill also Qwen3-MoE's 512-token prompt;
 # decode also a cache no multiple of its span, rows at other positions,
 # a window narrower than a span, a 65536-row cache (spans of many
-# tiles) and Qwen3-MoE's decode shape
+# tiles) and Qwen3-MoE's decode shape; both also at phase 15's shapes:
+# MusicGen-Large (32 heads over 32 KV heads, D 64; 512 frames, a 528-row
+# cache) and LLaVA-NeXT (32 over 8, D 128; 576 patches + 512 tokens, a
+# 1104-row cache)
 FA_SHAPES = [
     (1, 128, 4, 2, 64, 0, 0.0, "float32"),
     (2, 256, 8, 8, 64, 0, 0.0, "float32"),
@@ -690,6 +723,8 @@ FA_SHAPES = [
     (2, 100, 6, 2, 20, 24, 20.0, "float32"),
     (1, 512, 15, 5, 64, 0, 0.0, "float32"),
     (1, 512, 64, 4, 128, 0, 0.0, "float32"),
+    (1, 512, 32, 32, 64, 0, 0.0, "float32"),
+    (1, 1088, 32, 8, 128, 0, 0.0, "float32"),
 ]
 DA_SHAPES = [
     (2, 256, 8, 2, 64, 0, 0.0, "float32"),
@@ -704,11 +739,18 @@ DA_SHAPES = [
     (1, 65536, 64, 4, 128, 0, 0.0, "float32"),
     (1, 544, 15, 5, 64, 0, 0.0, "float32"),
     (1, 544, 64, 4, 128, 0, 0.0, "float32"),
+    (1, 528, 32, 32, 64, 0, 0.0, "float32"),
+    (1, 1104, 32, 8, 128, 0, 0.0, "float32"),
 ]
 FA_SERVE = (1, 512, 15, 5, 64, 0, 0.0, "float32")
 FA_MOE = (1, 512, 64, 4, 128, 0, 0.0, "float32")  # qwen3-moe's prefill
 DA_SERVE = (1, 544, 15, 5, 64, 0, 0.0, "float32")
 DA_MOE = (1, 544, 64, 4, 128, 0, 0.0, "float32")  # qwen3-moe's decode
+# phase 15's serving shapes: MusicGen-Large's and LLaVA-NeXT's
+FA_FRONTEND = [(1, 512, 32, 32, 64, 0, 0.0, "float32"),
+               (1, 1088, 32, 8, 128, 0, 0.0, "float32")]
+DA_FRONTEND = [(1, 528, 32, 32, 64, 0, 0.0, "float32"),
+               (1, 1104, 32, 8, 128, 0, 0.0, "float32")]
 
 
 def attn_tol(dtype):
@@ -809,9 +851,9 @@ def phase_attention(torch, fa_kernel, fa_ref, da_kernel, da_ref):
         g = torch.Generator(device="cuda").manual_seed(S + H + D)
         # the serving shapes read their cache cold, as a decode step does
         # (the step streams the model's weights between two reads of one
-        # layer's cache): 40 input sets (1.4 and 2.3 MB each) exceed the
-        # L2
-        serving = shape in (DA_SERVE, DA_MOE)
+        # layer's cache): 40 input sets (1.4 and 2.3 MB each; 8.7 and
+        # 9.0 MB at phase 15's shapes) exceed the L2
+        serving = shape in (DA_SERVE, DA_MOE, *DA_FRONTEND)
         n_sets = 40 if serving else 1
         sets = []
         for _ in range(n_sets):
@@ -1227,14 +1269,15 @@ def read_counts(counters):
 
 
 def kernels_per_tick(torch, sim, cfg, targets, wl,
-                     lead=PROFILE_LEAD, metrics="full") -> float:
+                     lead=PROFILE_LEAD, metrics="full",
+                     ticks=PROFILE_TICKS) -> float:
     """Device kernels a tick of a path, counted by torch.profiler over
-    ticks ``lead`` to ``lead`` + PROFILE_TICKS (their horizon set-up
+    ticks ``lead`` to ``lead`` + ``ticks`` (their horizon set-up
     included) in the given metrics mode, as
     benchmarks_torch/profile_main_path.py counts them."""
     from torch.profiler import ProfilerActivity, profile
 
-    lo, hi = lead, lead + PROFILE_TICKS
+    lo, hi = lead, lead + ticks
     st = sim.init_state(cfg, *targets, device="cuda")
     st, _ = sim.run_ticks(cfg, st, wl.keys[:lo], wl.mask[:lo],
                           wl.is_write[:lo])
@@ -1247,7 +1290,7 @@ def kernels_per_tick(torch, sim, cfg, targets, wl,
     n = sum(e.device_type == torch.autograd.DeviceType.CUDA
             for e in prof.events())
     check(n > 0, "the profiler saw no device events")
-    return n / PROFILE_TICKS
+    return n / ticks
 
 
 def phase_main(torch, np, core, sim, counters):
@@ -1304,7 +1347,7 @@ def tree_leaves(tree):
     return []
 
 
-def check_runs_equal(torch, a, b, what) -> None:
+def check_runs_equal(torch, a, b, what, pair="kernel vs plain") -> None:
     """Two run_ticks results (final state, per-tick outputs): every
     per-tick output (dV included) and every leaf of the final state
     bit for bit."""
@@ -1312,10 +1355,12 @@ def check_runs_equal(torch, a, b, what) -> None:
     for f in oa._fields:
         x, y = getattr(oa, f), getattr(ob, f)
         check(x.dtype == y.dtype and torch.equal(x, y),
-              f"{what}: kernel vs plain: per-tick {f} differs")
-    for i, (x, y) in enumerate(zip(tree_leaves(fa), tree_leaves(fb))):
+              f"{what}: {pair}: per-tick {f} differs")
+    la, lb = tree_leaves(fa), tree_leaves(fb)
+    check(len(la) == len(lb), f"{what}: {pair}: final states differ")
+    for i, (x, y) in enumerate(zip(la, lb)):
         check(x.dtype == y.dtype and torch.equal(x, y),
-              f"{what}: kernel vs plain: final state leaf {i} differs")
+              f"{what}: {pair}: final state leaf {i} differs")
 
 
 def run_both(torch, sim, cfg, grid, targets):
@@ -1404,7 +1449,7 @@ def phase_small(np, core):
 # the guard, E1/E2
 # ---------------------------------------------------------------------------
 
-PLANE_TICKS = 150  # each phase-10 run at phase 3's constants
+PLANE_TICKS = 100  # each phase-10 run at phase 3's constants
 PLANE_VARIANTS = (  # midas + cache under each, through route_tick
     dict(ablate="no_margin"), dict(ablate="no_pin"),
     dict(ablate="no_bucket"), dict(controller="aimd"),
@@ -1420,7 +1465,7 @@ PLANE_SMALL = tuple(dict(policy=p) for p in PLANE_BASELINES + ("chbl",)) \
         dict(controller="static"), dict(ablate="no_margin,no_pin,no_bucket"),
         dict(guard=True)))
 GUARD_TICKS = 1200  # the small guard run: two slow windows of 600 ticks
-CLAIMS_T = 300  # E1/E2 cut from the paper's T = 3000 for time
+CLAIMS_T = 200  # E1/E2 cut from the paper's T = 3000 for time
 
 
 def plane_grid(wl, T):
@@ -1568,10 +1613,10 @@ def phase_claims(core, counters):
 
 FLEET = dict(FULL, P=8, policy="midas", middleware=("fleet_cache",),
              fleet_routing=True, gossip_ms=100.0, cache_mode="lease")
-FLEET_TICKS = 400
+FLEET_TICKS = 300
 FLEET_SCENARIO = "rename_storm"
-FLEET_PROFILE_LEAD = 300  # the 50-tick profiler window starts here
-FLEET_POD_TICKS = 200  # the power_of_d fleet run
+FLEET_PROFILE_LEAD = 250  # the 50-tick profiler window starts here
+FLEET_POD_TICKS = 100  # the power_of_d fleet run
 FLEET_SMALL_T = 200  # the card-vs-CPU runs at m = 8
 # the four E9 scenarios (benchmarks/fleet.py) and the other composed
 # workloads; the nine (gossip ms, cache mode) cells of E9 take them in turn
@@ -1729,34 +1774,40 @@ def phase_fleet(torch, np, core, sim, counters):
 # programs at phase 11's full width
 # ---------------------------------------------------------------------------
 
-FAULT_TICKS = 400  # the first 400 ticks of phase 3's bursty grid
-FAULT_POD_TICKS = 200  # the power_of_d run under the same program
+FAULT_TICKS = 300  # the first 300 ticks of phase 3's bursty grid
+FAULT_POD_TICKS = 100  # the power_of_d run under the same program
 FAULT_OFF_TICKS = 100  # the zero-cost and proxy_join runs
-FAULT_PROFILE = ((150, 200), (350, 400))  # in and after the fault window
+FAULT_PROFILE = ((150, 200), (250, 300))  # in and after the fault window
 # benchmarks/resilience.py (E12): its config, horizon, seeds and the
 # recovery rule's hold; (d) cuts the horizon to 150 ticks and divides
 # every event's t0 and duration by 6, for time
 E12 = dict(m=8, N=1024, middleware=("fleet_cache",), gossip_ms=100.0)
-E12_T, E12_SEEDS, E12_HOLD = 900, (0, 1), 20
+# the headline runs seed 0 alone, for time (E12 averages seeds 0 and 1)
+E12_T, E12_SEEDS, E12_HOLD = 900, (0,), 20
 E12_SMALL_T, E12_CUT = 150, 6
 E12_CELLS = (("midas", "hysteresis"), ("round_robin", "static"),
              ("power_of_d", "hysteresis"))
 
 
-def fault_program(faults):
+def fault_program(faults, cut=1):
     """E13's three compound programs (benchmarks/redteam.py), retimed to
-    400 ticks and applied together."""
+    400 ticks and applied together; every time divided by ``cut``."""
     ev = faults.FaultEvent
     return (
         faults.overlap(
-            ev("ckpt_storm_fleet", t0=100, duration=150, magnitude=0.6),
-            ev("proxy_crash", t0=120, duration=120, target=0))
-        + faults.rolling("server_brownout", targets=(1, 2, 3), t0=100,
-                         duration=80, stagger=50, magnitude=0.3)
+            ev("ckpt_storm_fleet", t0=100 // cut, duration=150 // cut,
+               magnitude=0.6),
+            ev("proxy_crash", t0=120 // cut, duration=120 // cut,
+               target=0))
+        + faults.rolling("server_brownout", targets=(1, 2, 3),
+                         t0=100 // cut, duration=80 // cut,
+                         stagger=50 // cut, magnitude=0.3)
         + (faults.CascadeEvent(
-            trigger=ev("proxy_crash", t0=120, duration=120, target=0),
-            effect=ev("gossip_partition", t0=0, duration=100, target=-1),
-            offset=10),))
+            trigger=ev("proxy_crash", t0=120 // cut, duration=120 // cut,
+                       target=0),
+            effect=ev("gossip_partition", t0=0, duration=100 // cut,
+                      target=-1),
+            offset=10 // cut),))
 
 
 def e12_blocks(faults, cut=1):
@@ -1862,7 +1913,7 @@ class TickProbe:
 
 
 def phase_faults(torch, np, core, sim, counters, wl3):
-    """E12's scenario (the first 400 ticks of phase 3's bursty grid)
+    """E12's scenario (the first 300 ticks of phase 3's bursty grid)
     under E13's compound programs at phase 11's constants: midas through
     route_tick bitwise its plain run, with the fault layer's invariants;
     power_of_d through route_select; zero cost when off and proxy_join;
@@ -2106,11 +2157,12 @@ def phase_faults(torch, np, core, sim, counters, wl3):
 # modes, the cells one after another through the engine
 # ---------------------------------------------------------------------------
 
-SWEEP_TICKS = 100
+SWEEP_TICKS = 50  # the 24-cell sweeps (100 before, cut for time)
+E13_SWEEP_TICKS = 100  # the faulted sweep: E13's program retimed to 100
 SWEEP_POLICIES = ("midas", "power_of_d", "round_robin")
 SWEEP_CONTROLLERS = ("hysteresis", "static")
 SWEEP_SEEDS = (0, 1)
-SWEEP_PROFILE_LEAD = 50  # kernels a tick over ticks 50-100 of one cell
+SWEEP_PROFILE = (10, 40)  # kernels a tick over ticks 10-50 of one cell
 # E13's crash_during_storm (benchmarks/redteam.py: a storm over 400-700
 # with a crash of server 0 over 450-650, of 1200 ticks) retimed to 100
 E13_SWEEP = dict(FULL, policy="midas", middleware=("fleet_cache",), P=8,
@@ -2199,13 +2251,14 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
         for p in SWEEP_POLICIES:
             us = sum(e["dur"] for e in spans if e["args"]["policy"] == p)
             rate[p] = n_pol * T / (us * 1e-6)
+        lead, n = SWEEP_PROFILE
         kpt[mode] = kernels_per_tick(torch, sim, cfg, targets, grids[0],
-                                     lead=SWEEP_PROFILE_LEAD, metrics=mode)
+                                     lead=lead, metrics=mode, ticks=n)
         say(f"[13] {mode} sweep, {spec.n_cells} cells x {T} ticks in "
             f"{secs:.3f} s; ticks/s by policy (sweep/execute spans): "
             + ", ".join(f"{p} {r:.1f}" for p, r in rate.items())
             + f"; midas {kpt[mode]:.1f} kernels a tick (ticks "
-            f"{SWEEP_PROFILE_LEAD}-{SWEEP_PROFILE_LEAD + PROFILE_TICKS}); "
+            f"{lead}-{lead + n}); "
             f"peak allocated {peak[mode][0] / 1e6:.1f} MB "
             f"({(peak[mode][0] - peak[mode][1]) / 1e6:.1f} MB above the "
             f"{peak[mode][1] / 1e6:.1f} MB held before); card "
@@ -2249,9 +2302,11 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
 
     # the faulted fleet: a faults= override, the sweep's own warmup
     t0 = time.perf_counter()
+    T = E13_SWEEP_TICKS
+    fgrid = plane_grid(wl3, T)
     program = e13_storm_crash(faults)
     fcfg = core.SimConfig(**E13_SWEEP)
-    spec = core.SweepSpec(config=fcfg, workloads=grids[0],
+    spec = core.SweepSpec(config=fcfg, workloads=fgrid,
                           controllers=E13_CONTROLLERS, seeds=SWEEP_SEEDS,
                           faults=program)
     obs_trace.configure(fresh=True)
@@ -2266,16 +2321,19 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
                if e["name"].endswith("/warmup")]
     check(warmups == ["sim/warmup", "sweep/warmup"],
           f"the faulted sweep's warmup spans are {warmups}")
+    # one warmup for the single runs: it strips the faults and ignores
+    # the controller, so every row's simulate would make the same one
+    ftargets = sim.warmup(spec.config, device="cuda")
     for (p, c, w, seed), row in fres.items():
         rcfg = dataclasses.replace(spec.config, controller=c, seed=seed)
         _, st_mask, _ = faults.apply_traffic(
-            faults.compile_faults(rcfg, T), grids[0].keys, grids[0].mask,
-            grids[0].is_write)
-        check_result(np, row, grids[0]._replace(mask=st_mask), T, fcfg.m)
+            faults.compile_faults(rcfg, T), fgrid.keys, fgrid.mask,
+            fgrid.is_write)
+        check_result(np, row, fgrid._replace(mask=st_mask), T, fcfg.m)
         check_fleet_counters(row.final_cache, fcfg.P, f"faulted {c} {seed}")
-        alone = core.simulate(rcfg, grids[0], device="cuda")
+        alone = stand_alone(sim, rcfg, fgrid, ftargets)
         check(rows_equal(np, alone, row, FIELDS),
-              f"faulted sweep {c} x seed {seed} is not its simulate")
+              f"faulted sweep {c} x seed {seed} is not its single run")
         for i, (x, y) in enumerate(zip(tree_leaves(alone.final_cache),
                                        tree_leaves(row.final_cache))):
             check(torch.equal(x, y),
@@ -2287,10 +2345,189 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
         f"3's constants, controllers {E13_CONTROLLERS} x seeds "
         f"{SWEEP_SEEDS}: {want['route_tick']} route_tick launches and no "
         f"other kernel; one warmup (its spans) for both controllers; every "
-        f"row and its FleetState bit for bit its simulate (which makes "
-        f"its own warmup); server 0's queue peaked at {q[:, 0].max():.1f} "
-        f"({sweep_s:.1f} s)")
+        f"row and its FleetState bit for bit its single run (simulate's "
+        f"steps after one warmup of the config); server 0's queue peaked "
+        f"at {q[:, 0].max():.1f} ({sweep_s:.1f} s)")
     return tick_launches + want["route_tick"], pod_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the unrolled-waves engine (E10's "before"), theory and the
+# report CLI
+# ---------------------------------------------------------------------------
+
+UNROLL_TICKS = 150  # the first 150 ticks of phase 3's bursty grid
+UNROLL_WARMUP_TICKS = 300  # both engines' warmup on 300 light ticks
+UNROLL_PROFILE = (100, 10)  # kernels a tick over ticks 100-110
+UNROLL_FAULT_TICKS, UNROLL_FAULT_CUT = 100, 4  # phase 12's program / 4
+THEORY = dict(n_balls=64, m=64, trials=30, seed=0)
+
+
+def timed_run(torch, sim, cfg, targets, grid):
+    """((final state, per-tick outputs), seconds) of one run_ticks."""
+    st = sim.init_state(cfg, *targets, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.run_ticks(cfg, st, *grid)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def engine_pair(torch, sim, counters, cfg, targets, grid, what):
+    """The grid under the unrolled engine (route_select once a wave) and
+    the hoisted one (route_tick once a tick), each with its launches
+    counted, bitwise equal.  Returns (unrolled run, its seconds, hoisted
+    seconds, launches of each)."""
+    T = grid[0].shape[0]
+    G = cfg.P if cfg.fleet_routing else cfg.n_groups
+    runs, launches = {}, {}
+    for unroll in (True, False):
+        c = dataclasses.replace(cfg, unroll_waves=unroll)
+        zero_counts(counters)
+        runs[unroll] = timed_run(torch, sim, c, targets, grid)
+        launches[unroll] = read_counts(counters)
+    for unroll, name, n in ((True, "route_select", T * G),
+                            (False, "route_tick", T)):
+        want = dict.fromkeys(counters, 0)
+        want[name] = n
+        check(launches[unroll] == want,
+              f"{what}, {'unrolled' if unroll else 'hoisted'} engine: "
+              f"{launches[unroll]} launches, expected {want}")
+    check_runs_equal(torch, runs[True][0], runs[False][0], what,
+                     pair="unrolled vs hoisted")
+    return runs[True], runs[False][1], launches
+
+
+def phase_unrolled(torch, np, core, sim, counters, wl3, targets):
+    """The unrolled-waves engine at phase 3's constants: its warmup
+    (on 300 ticks of the light grid, for time) equal to the hoisted
+    engine's; with phase 3's targets, the first 150 ticks of phase 3's
+    grid under midas + cache + hysteresis (1200 route_select launches,
+    no route_tick) bitwise the hoisted engine's run, both engines'
+    ticks/s and kernels a tick (E10's before and after); phase 12's faulted fleet retimed to 100 ticks
+    under both engines (800 route_select, bitwise, FleetState
+    included); balls-into-bins on the card bitwise the CPU's; the
+    report CLI's --check on the trace and artifact the phase writes.
+    Returns the launches (route_select, route_tick)."""
+    from repro_torch.core import faults, prng, theory
+    from repro_torch.obs import report, windows
+    from repro_torch.obs import trace as obs_trace
+
+    out_dir = ROOT / "build" / "unrolled"
+    obs_trace.configure(path=out_dir / "unrolled.trace.jsonl", fresh=True)
+    started = time.strftime("%Y-%m-%dT%H:%M:%S")
+    T = UNROLL_TICKS
+    wl = plane_grid(wl3, T)
+    grid = (wl.keys, wl.mask, wl.is_write)
+    cfg = core.SimConfig(policy="midas", middleware=("cache",),
+                         cache_mode="lease", unroll_waves=True, **FULL)
+
+    # (a) the warmup under both engines (the runs take phase 3's)
+    Tw = UNROLL_WARMUP_TICKS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sim.warmup(cfg, T=Tw, device="cuda")
+    warm_s = time.perf_counter() - t0
+    want = sim.warmup(dataclasses.replace(cfg, unroll_waves=False), T=Tw,
+                      device="cuda")
+    check(got == want, f"the unrolled engine's warmup gives {got}, the "
+          f"hoisted engine's {want}")
+    say(f"[14] the warmup ({Tw} ticks of the light grid) under the "
+        f"unrolled engine: targets {got}, the hoisted engine's "
+        f"({warm_s:.1f} s); the runs take phase 3's, {targets}")
+
+    # (b) midas + cache + hysteresis, both engines, bitwise
+    with obs_trace.span("unrolled/midas", cat="execute", T=T):
+        (u_run, u_s), h_s, launches = engine_pair(
+            torch, sim, counters, cfg, targets, grid, "midas + cache")
+    u_res = sim._to_result(cfg, u_run[1], sim._final_cache(cfg, u_run[0]))
+    check_result(np, u_res, wl, T, cfg.m)
+    lead, n = UNROLL_PROFILE
+    kpt = {name: kernels_per_tick(torch, sim, dataclasses.replace(
+        cfg, unroll_waves=unroll), targets, wl, lead=lead, ticks=n)
+        for name, unroll in (("unrolled", True), ("hoisted", False))}
+    e10 = {"unrolled": {"ticks_per_s": T / u_s,
+                        "kernels_per_tick": kpt["unrolled"],
+                        "route_select": launches[True]["route_select"]},
+           "hoisted": {"ticks_per_s": T / h_s,
+                       "kernels_per_tick": kpt["hoisted"],
+                       "route_tick": launches[False]["route_tick"]}}
+    say(f"[14] midas + cache + hysteresis, the first {T} ticks of phase "
+        f"3's grid: unrolled engine {launches[True]['route_select']} "
+        f"route_select launches and no route_tick, hoisted "
+        f"{launches[False]['route_tick']} route_tick; every per-tick output "
+        f"(dV included) and the final state bit for bit equal; steered "
+        f"{u_res.steered.sum():.0f} of eligible {u_res.eligible.sum():.0f}, "
+        f"cache hits {u_res.cache_hits.sum():.0f}")
+    say(f"[14] E10 before/after: unrolled {T / u_s:.1f} ticks/s, "
+        f"{kpt['unrolled']:.1f} kernels a tick; hoisted {T / h_s:.1f} "
+        f"ticks/s, {kpt['hoisted']:.1f} kernels a tick (ticks "
+        f"{lead}-{lead + n} profiled); card {card_line()}")
+
+    # (c) phase 12's faulted fleet, retimed into 100 ticks
+    Tf = UNROLL_FAULT_TICKS
+    fcfg = core.SimConfig(**FLEET, unroll_waves=True,
+                          faults=fault_program(faults, UNROLL_FAULT_CUT))
+    fwl = plane_grid(wl3, Tf)
+    fc = faults.compile_faults(fcfg, Tf)
+    check(fc.has_remap and len(fc.flips) == 2,
+          f"the retimed program flips at {list(fc.flips)}")
+    with obs_trace.span("unrolled/faulted_fleet", cat="execute", T=Tf):
+        (f_run, f_s), fh_s, f_launches = engine_pair(
+            torch, sim, counters, fcfg, targets,
+            (fwl.keys, fwl.mask, fwl.is_write), "faulted fleet")
+    check_fleet_counters(f_run[0].mw[0], fcfg.P, "unrolled faulted fleet")
+    say(f"[14] phase 12's faulted fleet (P={fcfg.P}, fleet routing, E13's "
+        f"three programs with every time / {UNROLL_FAULT_CUT}: flips at "
+        f"{[int(t) for t in fc.flips]}), the first {Tf} ticks: unrolled "
+        f"{f_launches[True]['route_select']} route_select launches, "
+        f"hoisted {f_launches[False]['route_tick']} route_tick; every "
+        f"output and the whole final state (FleetState included) bit for "
+        f"bit equal; {Tf / f_s:.1f} against {Tf / fh_s:.1f} ticks/s")
+    e10["faulted_fleet"] = {"unrolled_ticks_per_s": Tf / f_s,
+                            "hoisted_ticks_per_s": Tf / fh_s}
+
+    # (d) balls-into-bins on the card, bitwise the CPU's
+    th = {}
+    with obs_trace.span("unrolled/theory", cat="execute"):
+        for d in (1, 2):
+            kw = dict(THEORY, d=d)
+            loads = {dev: theory.balls_into_bins(
+                prng.split(prng.PRNGKey(kw["seed"], dev), kw["trials"]),
+                kw["n_balls"], kw["m"], d).cpu() for dev in ("cuda", "cpu")}
+            check(torch.equal(loads["cuda"], loads["cpu"]),
+                  f"balls_into_bins d={d}: card and CPU loads differ")
+            gaps = {dev: theory.maxload_gap_empirical(
+                kw["n_balls"], kw["m"], d, trials=kw["trials"],
+                seed=kw["seed"], device=dev) for dev in ("cuda", "cpu")}
+            check(gaps["cuda"] == gaps["cpu"],
+                  f"maxload_gap_empirical d={d}: {gaps}")
+            th[d] = gaps["cuda"]
+    bound = theory.power_of_d_maxload_gap_theory(THEORY["m"], 2)
+    check(th[2][0] < th[1][0] and th[1][0] > bound,
+          f"the gaps {th} do not order as the reference's claims")
+    say(f"[14] balls-into-bins at n = m = {THEORY['m']}, "
+        f"{THEORY['trials']} trials on the card: loads bitwise the CPU's; "
+        f"gap (mean, std) d=1 {th[1]}, d=2 {th[2]} (power-of-2 bound "
+        f"{bound:.3f}); uniform theory "
+        f"{theory.uniform_maxload_gap_theory(THEORY['m']):.3f}")
+
+    # (e) the artifact and its trace, read back by the report CLI
+    doc = {"meta": {"torch_version": torch.__version__,
+                    "device_kind": torch.cuda.get_device_name(0),
+                    "started_at": started,
+                    "written_at": time.strftime("%Y-%m-%dT%H:%M:%S")},
+           "e10": dict(e10, midas_cache=windows.cell_block([u_res])),
+           "theory": {f"d{d}": {"mean_gap": g[0], "std_gap": g[1]}
+                      for d, g in th.items()}}
+    obs_trace.RECORDER.path = None  # later phases write no trace
+    (out_dir / "unrolled.json").write_text(json.dumps(doc, indent=1))
+    rc = report.main(["--check", str(out_dir)])
+    check(rc == 0, f"repro_torch.obs.report --check {out_dir} exited {rc}")
+    report.main([str(out_dir / "unrolled.json")])
+    return (launches[True]["route_select"]
+            + f_launches[True]["route_select"],
+            launches[False]["route_tick"] + f_launches[False]["route_tick"])
 
 
 # ---------------------------------------------------------------------------
@@ -2298,17 +2535,20 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
 # ---------------------------------------------------------------------------
 
 
-def replay_traffic(np, router, vocab, *, requests, prompt_len, seed, **_):
+def replay_traffic(np, serving, router, cfg, *, requests, prompt_len, seed,
+                   **_):
     """The launcher's traffic on the host: each request's session is
-    routed, then its prompt drawn, from one numpy generator.  Returns
-    the prompts and the routes an independent router takes."""
+    routed, then its prefill inputs drawn (``serve.request_inputs``:
+    prompt tokens, and frames or patches for a frontend arch), from one
+    numpy generator.  Returns the inputs and the routes an independent
+    router takes."""
     rng = np.random.default_rng(seed)
     prompts, routes = [], []
     for req in range(requests):
         session = int(rng.zipf(1.4)) % 16
         route = router.route(session, req * 50.0, prefix_hash=session % 4)
         routes.append(route)
-        prompts.append(rng.integers(0, vocab, (1, prompt_len)))
+        prompts.append(serving.request_inputs(cfg, rng, prompt_len))
         router.complete(route[0])
         router.ingest_telemetry()
     return prompts, routes
@@ -2316,18 +2556,20 @@ def replay_traffic(np, router, vocab, *, requests, prompt_len, seed, **_):
 
 def teacher_forced(torch, models, model, prompt, tokens, impl, cache_len,
                    device="cuda", cache_dtype=None):
-    """Logits (1 + decode steps, V) of one request fed ``tokens``, as
-    the launcher runs it (a bfloat16 cache read back in float32), or
-    with a ``cache_dtype`` cache."""
-    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.int32,
-                                       device=device)}
+    """Logits (1 + decode steps, V) of one request fed ``tokens`` after
+    its prefill inputs ``prompt`` (``serve.request_inputs``), as the
+    launcher runs it (a bfloat16 cache read back in float32), or with a
+    ``cache_dtype`` cache."""
+    batch = {k: torch.as_tensor(v, dtype=torch.int32 if k == "tokens"
+                                else torch.float32, device=device)
+             for k, v in prompt.items()}
     lg, cache = models.prefill(model, batch, cache_len=cache_len,
                                cache_dtype=cache_dtype or torch.bfloat16,
                                impl=impl)
     cache = {p: {n: a.float() for n, a in c.items()}
              for p, c in cache.items()}
     out = [lg[0, -1]]
-    P = prompt.shape[1]
+    P = sum(v.shape[1] for k, v in prompt.items())  # the cache rows used
     tok = torch.as_tensor(tokens, dtype=torch.int32, device=device)
     for t in range(tokens.shape[0] - 1):
         pos = torch.tensor([P + t], dtype=torch.int32, device=device)
@@ -2423,10 +2665,11 @@ def phase_serve(torch, np, serving, counters, model, *, tag, per_layer,
     check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
           "a token outside the vocabulary")
     prompts, routes = replay_traffic(
-        np, MidasRouter(replicas=traffic["replicas"], d=3, f_max=0.25),
-        cfg.vocab_size, **traffic)
+        np, serving, MidasRouter(replicas=traffic["replicas"], d=3,
+                                 f_max=0.25), cfg, **traffic)
     check(res.routes == routes, "the router's decisions differ from a "
           "replay of the same traffic")
+    L = serving.prefix_len(cfg) + P + T  # the cache rows a request fills
     check(res.stats.routed == R, f"routed {res.stats.routed}")
     say(f"[{tag}] router: routed={res.stats.routed} steered="
         f"{res.stats.steered} prefix_hits={res.stats.cache_hits} queue_cv="
@@ -2454,9 +2697,9 @@ def phase_serve(torch, np, serving, counters, model, *, tag, per_layer,
     worst, lps = 0.0, []
     for req in range(R):
         lk = teacher_forced(torch, models, model, prompts[req],
-                            res.tokens[req], "cuda", P + T)
+                            res.tokens[req], "cuda", L)
         lp = teacher_forced(torch, models, model, prompts[req],
-                            res.tokens[req], "ref", P + T)
+                            res.tokens[req], "ref", L)
         check(bool(torch.isfinite(lk).all()), "logits not finite")
         diff = (lk - lp).abs()
         check(bool((diff <= SERVE_LOGIT_TOL * (1 + lp.abs())).all()),
@@ -2474,7 +2717,7 @@ def phase_serve(torch, np, serving, counters, model, *, tag, per_layer,
         worst32 = 0.0
         for req in range(R):
             lk, lp = (teacher_forced(torch, models, model, prompts[req],
-                                     res.tokens[req], impl, P + T,
+                                     res.tokens[req], impl, L,
                                      cache_dtype=torch.float32)
                       for impl in ("cuda", "ref"))
             worst32 = max(worst32, (lk - lp).abs().max().item())
@@ -2503,7 +2746,8 @@ def phase_serve_small(torch, np, serving):
 
     kw = dict(requests=8, prompt_len=16, decode_len=16, replicas=4, seed=0)
     for arch in ("smollm-360m", "gemma2-2b", "falcon-mamba-7b",
-                 "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-v0.1-52b"):
+                 "qwen3-moe-235b-a22b", "dbrx-132b", "jamba-v0.1-52b",
+                 "musicgen-large", "llava-next-mistral-7b"):
         cfg = get_smoke_arch(arch)
         run = RunConfig(arch=arch)
         cpu_model = models.init_params(cfg, kw["seed"], device="cpu")
@@ -2515,12 +2759,13 @@ def phase_serve_small(torch, np, serving):
             check(np.array_equal(cpu.tokens, gpu.tokens),
                   f"{cfg.name}: card and CPU tokens differ")
             say(f"[7] {cfg.name} (head_dim {cfg.resolved_head_dim}, window "
-                f"{cfg.window_size}, softcap {cfg.logit_softcap}): the "
-                f"card's {gpu.tokens.size} tokens equal the CPU run's")
+                f"{cfg.window_size}, softcap {cfg.logit_softcap}, frontend "
+                f"{cfg.frontend}): the card's {gpu.tokens.size} tokens "
+                f"equal the CPU run's")
             continue
         prompts, _ = replay_traffic(
-            np, MidasRouter(replicas=kw["replicas"], d=3, f_max=0.25),
-            cfg.vocab_size, **kw)
+            np, serving, MidasRouter(replicas=kw["replicas"], d=3,
+                                     f_max=0.25), cfg, **kw)
         P, T = kw["prompt_len"], kw["decode_len"]
 
         def forced(cache_dtype):
@@ -2591,8 +2836,9 @@ def phase_moe(torch, np, serving, counters):
                                    "flash_attention": R,
                                    "decode_attention": R * T})
     prompt = torch.as_tensor(replay_traffic(
-        np, MidasRouter(replicas=SERVE["replicas"], d=3, f_max=0.25),
-        cfg.vocab_size, **SERVE)[0][0], dtype=torch.int32, device="cuda")
+        np, serving, MidasRouter(replicas=SERVE["replicas"], d=3,
+                                 f_max=0.25), cfg, **SERVE)[0][0]["tokens"],
+        dtype=torch.int32, device="cuda")
     _, _, aux = models.forward(model, {"tokens": prompt}, return_moe=True)
     steer = torch.stack([a.steer_rate for a in aux.values()])
     drop = torch.cat([a.drop_rate for a in aux.values()])
@@ -2617,6 +2863,53 @@ def phase_moe(torch, np, serving, counters):
         f"{fused.decode_ms_per_token():.3f} ms per token at f_max 1 "
         f"({MOE_FUSED_REQUESTS} requests)")
     return launches, fused_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the audio and vision frontends at full width
+# ---------------------------------------------------------------------------
+
+# 4 requests of 512 frames (MusicGen) or 576 patches + 512 tokens
+# (LLaVA-NeXT), 16 greedy decode steps each, 4 replicas
+FRONTEND_TRAFFIC = dict(requests=4, prompt_len=512, decode_len=16,
+                        replicas=4, seed=0)
+FRONTENDS = (("musicgen-large", None), ("llava-next-mistral-7b", 8))
+
+
+def phase_frontends(torch, np, serving, counters):
+    """MusicGen-Large at full depth and LLaVA-NeXT-Mistral-7B at full
+    width cut to 8 of 32 layers, each served with FRONTEND_TRAFFIC,
+    kernels then plain attention: one flash_attention launch a layer a
+    prefill and one decode_attention a layer a decode step, tokens
+    equal between the two paths.  Returns the launches of each arch."""
+    from repro_torch.config import get_arch
+
+    out = {}
+    for arch, layers in FRONTENDS:
+        full = get_arch(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        lead = serving.prefix_len(cfg)
+        prompt = FRONTEND_TRAFFIC["prompt_len"]
+        decode = FRONTEND_TRAFFIC["decode_len"]
+        say(f"[15] {full.name} ({full.frontend}: "
+            + (f"{lead} patches + {prompt} prompt tokens" if lead else
+               f"{prompt} frames")
+            + f" a request, a {lead + prompt + decode}-row cache): "
+            + ("every layer" if layers is None else
+               f"cut to {layers} of its {full.num_layers} layers (depth "
+               f"only; every width as published)"))
+        t0 = time.perf_counter()
+        model = make_model(torch, cfg, 15)
+        _, out[arch] = phase_serve(
+            torch, np, serving, counters, model, tag=15,
+            per_layer=lambda R, P, T: {"flash_attention": R,
+                                       "decode_attention": R * T},
+            traffic=FRONTEND_TRAFFIC)
+        del model
+        torch.cuda.empty_cache()
+        say(f"[15] {full.name} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, max_err, row):
@@ -2710,6 +3003,10 @@ def main() -> int:
         sweep_tick, sweep_pod = phase_sweeps(torch, np, core, sim, counters,
                                              wl, targets)
         say(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
+        t14 = time.perf_counter()
+        unroll_pod, unroll_tick = phase_unrolled(torch, np, core, sim,
+                                                 counters, wl, targets)
+        say(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
         model = make_model(torch, get_arch("smollm-360m"), 6)
         _, serve_launches = phase_serve(
             torch, np, serving, counters, model, tag=6,
@@ -2735,6 +3032,9 @@ def main() -> int:
         moe_launches, fused_launches = phase_moe(torch, np, serving,
                                                  counters)
         say(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
+        t15 = time.perf_counter()
+        fe_launches = phase_frontends(torch, np, serving, counters)
+        say(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2750,6 +3050,11 @@ def main() -> int:
                   and r["name"] == "decode_attention")
     cs_row = next(r for r in cs_rows if r["shape"] == CS_SERVE)
     mr_row = {r["name"]: r for r in mr_rows if r["shape"] == MR_SERVE}
+    # each attention kernel's launches over every serving path
+    attn = {name: sum(run[name] for run in (
+        serve_launches, moe_launches, fused_launches,
+        *fe_launches.values()))
+        for name in ("flash_attention", "decode_attention")}
     csrc = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     mr_src = csrc.format("midas_route", "midas_dispatch")
     say(f"[*] total {time.perf_counter() - t_start:.1f} s")
@@ -2759,22 +3064,23 @@ def main() -> int:
                                                  "route_select"),
                      REPLACES, launches + plane["route_select"]
                      + claims_launches["route_select"] + fleet_pod
-                     + fault_pod + sweep_pod,
+                     + fault_pod + sweep_pod + unroll_pod,
                      max_err, main_row),
         kernel_entry("route_tick", csrc.format("midas_route",
                                                "route_select"),
                      TICK_REPLACES, tick_launches + plane["route_tick"]
-                     + FLEET_TICKS + fault_tick + sweep_tick, 0.0,
+                     + FLEET_TICKS + fault_tick + sweep_tick + unroll_tick,
+                     0.0,
                      tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",
-                     serve_launches["flash_attention"],
+                     attn["flash_attention"],
                      attn_err["flash_attention"], fa_row),
         kernel_entry("decode_attention",
                      csrc.format("decode_attention", "decode_attention"),
                      "src/repro/kernels/decode_attention/kernel.py:93",
-                     serve_launches["decode_attention"],
+                     attn["decode_attention"],
                      attn_err["decode_attention"], da_row),
         kernel_entry("chunk_scan", csrc.format("ssm_scan", "chunk_scan"),
                      "src/repro/kernels/ssm_scan/kernel.py:58",

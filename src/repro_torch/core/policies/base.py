@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core import registry as registry_lib
 from repro_torch.core.controllers.base import Knobs
+from repro_torch.core.xla import loop_sum
 
 
 class RouteContext(NamedTuple):
@@ -93,12 +94,13 @@ class RouteStats(NamedTuple):
 
 
 def steering_dv(ctx: RouteContext, assign: torch.Tensor) -> torch.Tensor:
-    """ΔV contribution of steering away from primary (paper eq. 2)."""
+    """ΔV contribution of steering away from primary (paper eq. 2),
+    summed over the wave in XLA's order (``xla.loop_sum``)."""
     prim = ctx.primary.long()
     moved = ctx.mask & (assign != ctx.primary) & (assign >= 0)
     dv = 2.0 * (ctx.L_view[assign.clamp(min=0).long()]
                 - ctx.L_view[prim]) + 2.0
-    return torch.where(moved, dv, 0.0).sum()
+    return loop_sum(torch.where(moved, dv, 0.0))
 
 
 class TickRoute(NamedTuple):
@@ -117,8 +119,9 @@ def steering_dv_waves(
     ``ctx`` holds the tick's (G, Rg) waves, ``views`` (G, m) the view each
     wave was routed on and ``assign`` (G, Rg) its assignments.  The terms
     are elementwise, so computing them for all waves at once changes no
-    bit; each wave's terms are then summed on their own, in a tensor of
-    their own, as :func:`steering_dv` sums them.  So the result equals
+    bit; each wave's terms are then summed on their own, row by row in
+    one batched ``xla.loop_sum``, as :func:`steering_dv` sums them (an
+    order that depends on the row's length alone).  So the result equals
     the waves one at a time bit for bit.  (The sums are added from the
     first wave's, not from 0.0: a sum that starts at +0.0 is never -0.0,
     so 0.0 + s == s.)  G >= 1."""
@@ -126,9 +129,8 @@ def steering_dv_waves(
     moved = ctx.mask & (assign != prim) & (assign >= 0)
     dv = 2.0 * (views.gather(1, assign.clamp(min=0).long())
                 - views.gather(1, prim.long())) + 2.0
-    sums = [torch.where(moved[g], dv[g], 0.0).sum()
-            for g in range(assign.shape[0])]
-    return functools.reduce(operator.add, sums)
+    sums = loop_sum(torch.where(moved, dv, 0.0))  # (G,)
+    return functools.reduce(operator.add, sums.unbind(0))
 
 
 class Policy:

@@ -4,7 +4,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hashring
 from repro_torch.core.policies.base import Policy, RouteStats, register
+
+
+def route_hash(
+    ring: hashring.Ring, keys: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Each request's ring primary, -1 where ``mask`` is False."""
+    return torch.where(mask, hashring.primary(ring, keys), -1)
 
 
 @register("hash")

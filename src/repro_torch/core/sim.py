@@ -40,9 +40,16 @@ into O(m) accumulators on the device instead of stacking (T, m)
 timelines (:class:`SummaryAcc`, :class:`KnobTrace`); :func:`summarize`
 folds a full result the same way, and ``repro_torch.core.sweep`` runs
 grids of cells in either mode.  The engine runs on the CUDA device
-unless the caller passes ``device="cpu"``.  The unrolled reference
-engine (``unroll_waves``) is not ported and raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+unless the caller passes ``device="cpu"``.
+
+``SimConfig(unroll_waves=True)`` selects the reference's pre-scan
+engine: no feasible set and no policy draw is hoisted out of the tick;
+each wave gathers its own feasible set (member-aware on the tick's
+detected row under a membership fault), takes its key ``fold_in(r_route,
+g)`` and its draws (made for the tick's waves at its start) and routes
+through ``Policy.route``, so midas launches ``route_select`` once a wave
+and never ``route_tick``.  It gives the hoisted engine's results bit for
+bit, and is E10's "before" engine.
 """
 
 from __future__ import annotations
@@ -116,7 +123,9 @@ class SimConfig:
     # fault names, FaultEvent or CascadeEvent; None and () are the
     # untouched fault-free engine
     faults: Optional[Tuple] = None
-    unroll_waves: bool = False  # unrolled reference engine (unported)
+    # the pre-scan engine: per-wave gathers and draws in the tick, each
+    # wave through Policy.route (the hoisted engine's oracle; E10)
+    unroll_waves: bool = False
     # wave-routing implementation: "auto" is the CUDA kernel on the card
     # and the plain version on the CPU; "ref" pins the plain version;
     # "cuda" forces the kernel -- bit-for-bit with "ref" by contract
@@ -168,8 +177,6 @@ class SimConfig:
                 self, "faults", faults_lib.normalize(self.faults)
             )
             faults_lib.validate_events(self.faults, m=self.m, P=self.P)
-        if self.unroll_waves:
-            raise _unported("the unrolled-waves reference engine", 7)
 
     @property
     def fault_events(self) -> Tuple:
@@ -561,13 +568,16 @@ class Horizon(NamedTuple):
     mask: torch.Tensor  # (T, R) bool
     is_write: torch.Tensor  # (T, R) bool
     keysg: torch.Tensor  # (T, G, R/G) int64 keys per wave
-    feasg: torch.Tensor  # (T, G, R/G, d_max) int32 feasible sets
+    # (T, G, R/G, d_max) int32 feasible sets; None for the unrolled engine
+    feasg: Optional[torch.Tensor]
     rng: torch.Tensor  # (T, 2) state key after each tick's split
-    draws: Optional[tuple]  # (T, G, ...) the policy's draws
+    r_route: torch.Tensor  # (T, 2) each tick's routing key
+    draws: Optional[tuple]  # (T, G, ...) the policy's draws (hoisted only)
     jitter: torch.Tensor  # (T,) float32 fast-loop jitter in [-1, 1)
     fc: Optional[faults_lib.CompiledFaults]  # host schedule, or None
     fx: Optional[faults_lib.FaultXs]  # its per-tick rows on the device
     flips: frozenset  # host ticks that open a membership epoch
+    ring: hashring.Ring  # the consistent-hash ring the sets come from
 
 
 def _scan_inputs(
@@ -595,7 +605,9 @@ def _scan_inputs(
     middleware stages that draw; the cache draws nothing).  None of it
     depends on the simulation state, so the key chain is walked once
     here (Python ints, on the host) and all draws of the horizon are
-    made in batched calls on the device.
+    made in batched calls on the device.  The unrolled engine
+    (``cfg.unroll_waves``) hoists neither the feasible sets nor the
+    policy's draws: its waves make them in the tick.
     """
     T = keys.shape[0]
     dev = keys.device
@@ -615,14 +627,19 @@ def _scan_inputs(
     keys = keys.long()
     keysg = _wave_split(cfg, keys)
     G, Rg = keysg.shape[-2:]
-    waves = prng.fold_in(
-        r_route[:, None, :], torch.arange(G, device=dev)
-    )  # (T, G, 2)
     ticks = torch.arange(t0, t0 + T, dtype=torch.float32, device=dev)
-    if fc is None:
-        feasg = hashring.feasible_set(ring, keysg, cfg.d_max)
+    if cfg.unroll_waves:
+        feasg = draws = None
     else:
-        feasg = faults_lib.feasible_by_epoch(ring, keysg, cfg.d_max, fc)
+        waves = prng.fold_in(
+            r_route[:, None, :], torch.arange(G, device=dev)
+        )  # (T, G, 2)
+        draws = policy.wave_draws(waves, cfg, Rg)
+        if fc is None:
+            feasg = hashring.feasible_set(ring, keysg, cfg.d_max)
+        else:
+            feasg = faults_lib.feasible_by_epoch(ring, keysg, cfg.d_max,
+                                                 fc)
     return Horizon(
         t0=t0,
         now_ms=ticks * cfg.dt_ms,
@@ -632,12 +649,14 @@ def _scan_inputs(
         keysg=keysg,
         feasg=feasg,
         rng=rng,
-        draws=policy.wave_draws(waves, cfg, Rg),
+        r_route=r_route,
+        draws=draws,
         jitter=prng.uniform(prng.fold_in(rng, 3), (), -1.0, 1.0),
         fc=fc,
         fx=None if fc is None else faults_lib.make_xs(fc, dev),
         flips=frozenset(()) if fc is None or not fc.has_remap
         else frozenset(int(t) for t in fc.flips),
+        ring=ring,
     )
 
 
@@ -699,6 +718,70 @@ def _route_waves(
             mask=maskg[g],
             feas=feasg[g],
             L_view=state.L_hat + sent if views is None else views[g],
+            p50_view=state.p50_hat,
+            knobs=knobs,
+            now_ms=now_ms,
+            draws=slice_draws(draws, g),
+            m=cfg.m,
+            fixed_d=cfg.fixed_d,
+            route_impl=impl,
+        )
+        ps, assign, st = policy.route(ps, ctx)
+        sent = sent + _wave_counts(cfg.m, maskg[g], assign)
+        stats = stats + st
+        assigns.append(assign)
+    return ps, TickRoute(assign=torch.stack(assigns), arrivals=sent,
+                         stats=stats)
+
+
+def _route_waves_unrolled(
+    cfg: SimConfig,
+    policy: policy_lib.Policy,
+    state: SimState,
+    knobs: Knobs,
+    now_ms: torch.Tensor,
+    hz: Horizon,
+    t: int,
+    maskg: torch.Tensor,
+    impl: str,
+    consts: _Consts,
+):
+    """The reference's ``_route_waves_unrolled``: a tick's G waves one
+    at a time, each gathering its own feasible set (member-aware on
+    this tick's detected row under a membership fault, at the
+    schedule's scan width), drawing from its own key ``fold_in(r_route,
+    g)``, and routing through ``Policy.route`` on the stale EWMA view
+    plus this tick's earlier sends (under fleet routing on the view of
+    the proxy serving it).  Never ``route_tick``.  The G keys and their
+    draws are made at the tick's start in one call each: threefry is
+    elementwise, so they are the per-wave calls' bit for bit, at ~800
+    ops a tick on the card instead of ~800 a wave.  Returns (policy
+    state, TickRoute)."""
+    keysg, tick = hz.keysg[t], hz.t0 + t
+    G, Rg = keysg.shape
+    member = (hz.fx.detected[t] if hz.fc is not None and hz.fc.has_remap
+              else None)
+    waves = prng.fold_in(hz.r_route[t][None, :],
+                         torch.arange(G, device=keysg.device))  # (G, 2)
+    draws = policy.wave_draws(waves, cfg, Rg)
+    ps = state.policy
+    sent = torch.zeros_like(state.L)
+    stats = RouteStats(consts.zero, consts.zero, consts.zero)
+    assigns = []
+    for g in range(G):
+        if member is None:
+            feas = hashring.feasible_set(hz.ring, keysg[g], cfg.d_max)
+        else:
+            feas = hashring.feasible_set(
+                hz.ring, keysg[g], cfg.d_max,
+                scan_width=hz.fc.scan_width, member=member,
+            )
+        ctx = RouteContext(
+            keys=keysg[g],
+            mask=maskg[g],
+            feas=feas,
+            L_view=(state.L_hat_p[(g + tick) % G] if cfg.fleet_routing
+                    else state.L_hat + sent),
             p50_view=state.p50_hat,
             knobs=knobs,
             now_ms=now_ms,
@@ -835,17 +918,23 @@ def _tick(
         absorbed = absorbed + took
     state = state._replace(mw=tuple(mw_states))
 
-    # --- route in waves --------------------------------------------------
-    draws = slice_draws(hz.draws, t)
+    # --- route in waves (hoisted engine; the unrolled one on request) ---
     tick = hz.t0 + t
-    # each proxy routes from its OWN staggered telemetry view
-    views = (fleet_lib.wave_views(state.L_hat_p, tick)
-             if cfg.fleet_routing else None)
-    ps, routed = _route_waves(
-        cfg, policy, state, controller.view(state.ctrl), now_ms,
-        hz.keysg[t], _wave_split(cfg, mask), hz.feasg[t], draws, impl,
-        consts, views,
-    )
+    knobs = controller.view(state.ctrl)
+    if cfg.unroll_waves:
+        ps, routed = _route_waves_unrolled(
+            cfg, policy, state, knobs, now_ms, hz, t,
+            _wave_split(cfg, mask), impl, consts,
+        )
+    else:
+        # each proxy routes from its OWN staggered telemetry view
+        views = (fleet_lib.wave_views(state.L_hat_p, tick)
+                 if cfg.fleet_routing else None)
+        ps, routed = _route_waves(
+            cfg, policy, state, knobs, now_ms, hz.keysg[t],
+            _wave_split(cfg, mask), hz.feasg[t], slice_draws(hz.draws, t),
+            impl, consts, views,
+        )
     arrivals, stats = routed.arrivals, routed.stats
 
     # --- queue dynamics: constant-rate servers, work-conserving ----------

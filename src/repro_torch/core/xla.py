@@ -96,20 +96,25 @@ def _fold(parts, squares: bool) -> torch.Tensor:
 
 
 def _windows(x: torch.Tensor) -> torch.Tensor:
-    """1-D ``x`` (n > 32) as rows of 32: ``32·k − n`` zeros padded,
-    ``pad // 2`` in front and the rest behind, as XLA's tree-reduction
-    rewrite pads the ``reduce-window`` it makes of a long sum."""
-    n = x.shape[0]
+    """``x`` (n > 32 along the last axis) as rows of 32 along it:
+    ``32·k − n`` zeros padded, ``pad // 2`` in front and the rest
+    behind, as XLA's tree-reduction rewrite pads the ``reduce-window``
+    it makes of a long sum.  Returns (..., k, 32)."""
+    n = x.shape[-1]
     k = -(-n // 32)
     pad = 32 * k - n
     if pad:  # 0.0 + x == x: the pad changes no sum
         front, back = pad // 2, pad - pad // 2
-        x = torch.cat([x.new_zeros(front), x, x.new_zeros(back)])
-    return x.reshape(k, 32)
+        lead = x.shape[:-1]
+        x = torch.cat([x.new_zeros(lead + (front,)), x,
+                       x.new_zeros(lead + (back,))], dim=-1)
+    return x.reshape(x.shape[:-1] + (k, 32))
 
 
 def reduce_sum(x: torch.Tensor, squares: bool = False) -> torch.Tensor:
-    """``jnp.sum`` of a 1-D float32 tensor in XLA's CPU order.
+    """``jnp.sum`` of a 1-D float32 tensor in XLA's CPU order; of a
+    batch, the sum of each row along the last axis, each in that order
+    (one op a column for all rows at once).
 
     Up to 32 elements XLA sums left to right.  A longer sum becomes a
     ``reduce-window`` of size and stride 32: ``32·k − n`` zeros are
@@ -124,12 +129,36 @@ def reduce_sum(x: torch.Tensor, squares: bool = False) -> torch.Tensor:
     square into its add; above 32 it rounds the squares first and sums
     them by the windows above.  One op per column: a few dozen small ops
     on the card and no host read."""
-    n = x.shape[0]
+    n = x.shape[-1]
     if n <= 32:
-        return _fold(x.unbind(0), squares)
+        return _fold(x.unbind(-1), squares)
     if squares:
         x = x * x
-    return reduce_sum(_fold(_windows(x).unbind(1), False))
+    return reduce_sum(_fold(_windows(x).unbind(-1), False))
+
+
+def loop_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of each row along the last axis in the order XLA's CPU
+    backend takes when the reduction's input is fused into its loop
+    (the engine's per-wave dV): above 32 elements the windows of
+    :func:`reduce_sum`; up to 32 the loop LLVM vectorizes, 16 lanes
+    (two accumulators of 8) over the first ``16·⌊n/16⌋`` elements, the
+    lanes added in halves (8, 4, 2, 1), then the rest added left to
+    right; below 16 simply left to right.  Bit for bit the live jitted
+    engine's dV at 3-66 requests a wave (``tests/test_torch_unrolled.py``,
+    ``tests/test_torch_tick.py``)."""
+    n = x.shape[-1]
+    if n > 32:
+        return reduce_sum(x)
+    nv = n // 16 * 16
+    if not nv:
+        return _fold(x.unbind(-1), False)
+    acc = _fold(x[..., :nv].unflatten(-1, (nv // 16, 16)).unbind(-2),
+                False)
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return _fold((acc[..., 0],) + x[..., nv:].unbind(-1), False)
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ prefilled into a decode cache (the KV cache of a dense model, the SSM
 state and conv tail of a Mamba model; rounded to
 ``run.decode_kv_dtype``, then read back in float32 as the reference
 launcher does), ``decode_len`` greedy decode steps follow, and the
-request completes.  One model stands for every replica group.
+request completes.  One model stands for every replica group.  An
+audio arch (MusicGen) prefills ``prompt_len`` frame embeddings, a
+vision arch (LLaVA-NeXT) its ``frontend_tokens`` patch embeddings
+before the prompt (:func:`request_inputs`); both then decode tokens.
 ``main()`` keeps the reference's CLI and defaults (the smoke config of
 ``--arch``) and runs on the card:
 
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +66,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prefix_len(cfg: ArchConfig) -> int:
+    """Cache rows a request's frontend fills before its prompt: the
+    patches of a vision arch, none otherwise."""
+    return cfg.frontend_tokens if cfg.frontend == "vlm_patches" else 0
+
+
+def request_inputs(cfg: ArchConfig, rng: np.random.Generator,
+                   prompt_len: int) -> Dict[str, np.ndarray]:
+    """One request's prefill inputs, drawn from ``rng`` on the host (so
+    the card and the CPU get the same): ``prompt_len`` random tokens
+    (1, prompt_len); an audio arch prefills standard-normal frame
+    embeddings (1, prompt_len, d_model) in their place, and a vision
+    arch prefills standard-normal patch embeddings (1,
+    frontend_tokens, d_model) before them, both float32 and drawn after
+    the tokens."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (1, prompt_len))}
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": rng.standard_normal(
+            (1, prompt_len, cfg.d_model), dtype=np.float32)}
+    elif cfg.frontend == "vlm_patches":
+        batch["patches"] = rng.standard_normal(
+            (1, cfg.frontend_tokens, cfg.d_model), dtype=np.float32)
+    return batch
+
+
+def _to_device(batch: Dict[str, np.ndarray], dev: torch.device):
+    return {k: torch.as_tensor(v, dtype=torch.int32 if k == "tokens"
+                               else torch.float32).to(dev)
+            for k, v in batch.items()}
+
+
 def _to_f32(cache):
     return {pos: {n: a.float() if a.dtype == torch.bfloat16 else a
                   for n, a in c.items()}
@@ -83,11 +117,15 @@ def serve(
     model: Optional[models.Model] = None,
 ) -> ServeResult:
     """Serve ``requests`` requests of ``prompt_len`` random prompt tokens
-    and ``decode_len`` greedy decode steps each, on ``device`` (the card
-    unless the caller passes ``device="cpu"``; without a card this
-    raises).  ``seed`` seeds the traffic (numpy, as the reference
-    launcher's ``default_rng(0)``) and, when ``model`` is None, the
-    weights (:func:`repro_torch.models.init_params`).  ``impl`` is an
+    (frames for an audio arch, patches and tokens for a vision arch:
+    :func:`request_inputs`) and ``decode_len`` greedy decode steps
+    each, on ``device`` (the card unless the caller passes
+    ``device="cpu"``; without a card this raises).  The cache holds
+    ``prefix_len(cfg) + prompt_len + decode_len`` rows, and decoding
+    writes after the prefix and the prompt.  ``seed`` seeds the traffic
+    (numpy, as the reference launcher's ``default_rng(0)``) and, when
+    ``model`` is None, the weights
+    (:func:`repro_torch.models.init_params`).  ``impl`` is an
     ``IMPLS`` choice for every kernel of the model path: the attention
     kernels, ``chunk_scan`` of a Mamba layer and the dispatch kernels of
     an MoE layer."""
@@ -97,11 +135,12 @@ def serve(
     elif model.device.type != dev.type or dev.index not in (
             None, model.device.index):
         raise ValueError(f"the model is on {model.device}, not {dev}")
-    max_seq = prompt_len + decode_len
+    start = prefix_len(cfg) + prompt_len  # the first decode position
+    max_seq = start + decode_len
     prefill = make_prefill_step(cfg, run, cache_len=max_seq, impl=impl)
     decode = make_serve_step(cfg, run, impl=impl)
     router = MidasRouter(replicas=replicas, d=3, f_max=0.25)
-    positions = torch.arange(prompt_len, max_seq, dtype=torch.int32,
+    positions = torch.arange(start, max_seq, dtype=torch.int32,
                              device=dev)
     out = torch.zeros((requests, decode_len + 1), dtype=torch.int32,
                       device=dev)
@@ -116,11 +155,9 @@ def serve(
         replica, steered, hit = router.route(session, req * 50.0,
                                              prefix_hash=session % 4)
         routes.append((replica, steered, hit))
-        prompt = torch.as_tensor(
-            rng.integers(0, cfg.vocab_size, (1, prompt_len)),
-            dtype=torch.int32).to(dev)
+        batch = _to_device(request_inputs(cfg, rng, prompt_len), dev)
         t1 = time.perf_counter()
-        logits, cache = prefill(model, {"tokens": prompt})
+        logits, cache = prefill(model, batch)
         cache = _to_f32(cache)
         tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
         tok = tok.to(torch.int32)

@@ -15,9 +15,13 @@ views ``cache[pos][name][b]``.  MoE positions carry per-expert load
 telemetry in the same stacked layout, ``{pos: (num_blocks, E)}``
 (:func:`init_moe_state`).
 
-The audio and vision frontends and rematerialisation raise
-``NotImplementedError`` naming their ROADMAP item.  There is no loss
-and no backward yet: the functions here run without autograd.
+The audio and vision archs (MusicGen, LLaVA-NeXT) embed their inputs
+through the frontends of ``stubs.py``: ``batch["frames"]`` (B, S,
+d_model) plus sinusoidal positions in place of token embeddings, or
+``batch["patches"]`` (B, P, d_model) projected and prepended to the
+token embeddings; decoding embeds tokens for both.  Rematerialisation
+raises ``NotImplementedError`` naming its ROADMAP item.  There is no
+loss and no backward yet: the functions here run without autograd.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import stubs
 
 
 class LayerSpec(NamedTuple):
@@ -65,16 +70,6 @@ def num_blocks(cfg: ArchConfig) -> int:
 
 def _layer_has_ffn(cfg: ArchConfig) -> bool:
     return cfg.family != "ssm"
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not cover
-    yet: the audio and vision frontends."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP §1 item 8)"
-        )
 
 
 def _check_remat(remat_policy: str) -> None:
@@ -158,7 +153,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        check_supported(cfg)
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.cfg = cfg
         self.pattern = block_pattern(cfg)
@@ -169,6 +163,11 @@ class Model(nn.Module):
                            for i, spec in enumerate(self.pattern)})
             for _ in range(num_blocks(cfg))
         )
+        # the vision projector, registered last so the other weights
+        # draw the same random numbers as before it was ported
+        fe = stubs.frontend_init(cfg, **kw)
+        if fe is not None:
+            self.frontend = fe
 
     @property
     def device(self) -> torch.device:
@@ -189,7 +188,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     and every other weight is normal / sqrt(fan_in), with fan_in the
     input width (H·hd for ``wo``, d_conv for ``conv_w``, 1 for the
     embedding table, d for the MoE ``router``, ``w_gate`` and ``w_up``,
-    d_ff_expert for its ``w_down``).  The draws come from a CPU
+    d_ff_expert for its ``w_down``, d_model for the vision ``proj``).  The draws come from a CPU
     ``torch.Generator`` seeded with ``seed``, one parameter at a time,
     so a seed gives the same weights on every device (not the
     reference's: its threefry draws differ; parity tests convert the
@@ -249,12 +248,29 @@ def init_moe_state(cfg: ArchConfig, device=None) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor]):
+    """The layers' input (B, S, d_model): the frames plus positions
+    (audio), the projected patches before the token embeddings (vision),
+    or the token embeddings."""
+    cfg = model.cfg
+    if cfg.frontend == "audio_frames":
+        return stubs.audio_frontend(cfg, batch["frames"])
+    tok = model.embed(batch["tokens"])
+    if cfg.frontend == "vlm_patches":
+        return stubs.vlm_frontend(model.frontend, cfg, batch["patches"],
+                                  tok)
+    return tok
+
+
 @torch.no_grad()
 def forward(model: Model, batch: Dict[str, torch.Tensor], *,
             moe_state: Optional[Dict[str, torch.Tensor]] = None,
             return_moe: bool = False, impl: str = "auto",
             remat_policy: str = "none"):
-    """Full-sequence forward of ``batch["tokens"]`` (B, S).
+    """Full-sequence forward of ``batch["tokens"]`` (B, S) (with
+    ``batch["patches"]`` (B, P, d_model) before them for a vision arch,
+    or ``batch["frames"]`` (B, S, d_model) in their place for an audio
+    arch; the logits then cover the P + S positions).
 
     Returns the logits (B, S, V); with ``return_moe=True`` returns
     ``(logits, new_moe_state, aux)`` as the reference's ``forward``
@@ -267,7 +283,7 @@ def forward(model: Model, batch: Dict[str, torch.Tensor], *,
     kernel of the path: the attention kernels, the SSM scan's
     ``chunk_scan`` and the MoE dispatch."""
     _check_remat(remat_policy)
-    x = model.embed(batch["tokens"])
+    x = _embed_inputs(model, batch)
     auxes: Dict[str, list] = {}
     for b, block in enumerate(model.blocks):
         for i in range(len(model.pattern)):
@@ -301,7 +317,6 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
     (num_blocks, batch, max_seq, KV, hd) in ``dtype``, a Mamba position
     ``{"h": (num_blocks, batch, di, st) float32, "conv": (num_blocks,
     batch, d_conv - 1, di) in dtype}``."""
-    check_supported(cfg)
     dev = resolve_device(device)
     n = num_blocks(cfg)
     cache: Dict[str, Any] = {}
@@ -326,8 +341,10 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
             cache_len: Optional[int] = None, cache_dtype=torch.bfloat16,
             *, impl: str = "auto", remat_policy: str = "none"):
-    """Serving prefill: run the prompt, return the last position's
-    logits (B, 1, V) and a decode-ready cache: K/V padded with zeros to
+    """Serving prefill: run the prompt (its inputs as :func:`forward`
+    takes them: a vision arch's patches come first and take the first
+    P rows of the cache), return the last position's logits (B, 1, V)
+    and a decode-ready cache: K/V padded with zeros to
     ``cache_len`` rows and rounded to ``cache_dtype``; a Mamba layer's
     h in float32 and its conv tail rounded to ``cache_dtype``.  A prompt
     shorter than d_conv - 1 raises ``ValueError`` for a Mamba model.
@@ -335,7 +352,7 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
     prefill passes ``init_moe_state`` at every call."""
     _check_remat(remat_policy)
     cfg = model.cfg
-    x = model.embed(batch["tokens"])
+    x = _embed_inputs(model, batch)
     B, S = x.shape[:2]
     cache_len = cache_len or S
     if cache_len < S:

@@ -288,5 +288,10 @@ def test_faulted_runs_do_not_resume_and_warmup_strips_faults(grids):
                                device="cpu")
     assert tsim.warmup(cfg, device="cpu", wl=light) == tsim.warmup(
         dataclasses.replace(cfg, faults=None), device="cpu", wl=light)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dataclasses.replace(cfg, unroll_waves=True)
+    # the unrolled engine (item 7) runs the faulted config, bitwise
+    unrolled = tsim.simulate(dataclasses.replace(cfg, unroll_waves=True),
+                             wl, do_warmup=False, device="cpu")
+    hoisted = tsim.simulate(cfg, wl, do_warmup=False, device="cpu")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(unrolled, f),
+                                      getattr(hoisted, f), err_msg=f)

@@ -205,19 +205,26 @@ def test_params_from_numpy_checks_shapes(pair):
     ("musicgen-large", "item 8"), ("llava-next-mistral-7b", "item 8"),
 ])
 def test_unported_families_raise(arch, item):
-    """The audio and vision frontends (item 8) raise naming their item;
-    the MoE families of item 11 are ported since, and build."""
+    """The families these items named as unported build now: the MoE
+    families of item 11, and the audio and vision frontends of item 8
+    (LLaVA's patch projector, MusicGen without a frontend parameter)."""
     cfg = get_smoke_arch(arch)
+    model = models.init_params(cfg, device="cpu")
     if item == "item 11":
-        model = models.init_params(cfg, device="cpu")
         assert sorted(models.init_moe_state(cfg, "cpu")) == [
             str(i) for i, spec in enumerate(model.pattern) if spec.is_moe]
-        models.init_decode_cache(cfg, 1, 8, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        models.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        models.init_decode_cache(cfg, 1, 8, device="cpu")
+    elif cfg.frontend == "vlm_patches":
+        proj = model.frontend.proj
+        assert tuple(proj.shape) == (cfg.d_model, cfg.d_model)
+        # normal / sqrt(fan_in) with fan_in = d_model, as the reference
+        assert 0.5 < float(proj.std()) * cfg.d_model ** 0.5 < 1.5
+    else:
+        assert not hasattr(model, "frontend")
+    cache = models.init_decode_cache(cfg, 1, 8, device="cpu")
+    if item == "item 8":
+        assert cache["0"]["k"].shape == (cfg.num_layers, 1, 8,
+                                         cfg.num_kv_heads,
+                                         cfg.resolved_head_dim)
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])

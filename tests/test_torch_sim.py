@@ -148,12 +148,18 @@ def _assert_trees_match(want, got):
 
 
 def test_unported_choices_raise_naming_the_roadmap_item():
-    # the unrolled engine is not ported, alone or with faults (item 7)
+    # the unrolled engine (item 7) is ported: alone, with fleet routing
+    # and with faults it constructs and runs
+    grid = tuple(torch.as_tensor(np.asarray(x)[:12])
+                 for x in (WL.keys, WL.mask, WL.is_write))
     for kw in (dict(unroll_waves=True),
                dict(fleet_routing=True, unroll_waves=True),
                dict(faults=("proxy_crash",), unroll_waves=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-            tsim.SimConfig(**kw)
+        cfg = tsim.SimConfig(m=8, N=512, **kw)
+        assert cfg.unroll_waves
+        _, outs = tsim.run_ticks(cfg, tsim.init_state(cfg, device="cpu"),
+                                 *grid)
+        assert outs.L.shape == (12, 8)
     # faults are ported: registered kinds construct, unknown ones list
     # the registered kinds
     for kw in (dict(faults=("proxy_crash",)),
