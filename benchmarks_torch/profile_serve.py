@@ -72,7 +72,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--decode-steps", type=int,
-                    default=SERVE["decode_len"])
+                    default=32)  # the serving cell's steps before its cut
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: as "
                          "published)")

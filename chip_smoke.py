@@ -9,13 +9,14 @@ It builds the port's CUDA kernels from the sources in the checkout,
 holds each against its plain PyTorch version, drives the port's paths
 at full width and checks what comes out: the simulator
 (``repro_torch.core.simulate``: MIDAS routing, the cooperative cache,
-the hysteresis controller, the ``bursty`` workload; under both engines)
-and serving (``repro_torch.launch.serve.serve``: the MIDAS router in
+the hysteresis controller, the ``bursty`` workload; under both engines),
+serving (``repro_torch.launch.serve.serve``: the MIDAS router in
 front of prefill and greedy decode) of SmolLM-360M, falcon-mamba-7b,
-Qwen3-MoE-235B-A22B, MusicGen-Large and LLaVA-NeXT-Mistral-7B.
+Qwen3-MoE-235B-A22B, MusicGen-Large and LLaVA-NeXT-Mistral-7B, and
+training (``repro_torch.launch.train``) of SmolLM-360M.
 Phases:
 
-1. card and build: the card's name and power limit, the five sources
+1. card and build: the card's name and power limit, the six sources
    built at once (one nvcc each);
 2. every kernel against its plain version on the card, with its device
    time (CUDA-graph replay), the time a Python caller pays per call,
@@ -54,11 +55,11 @@ Phases:
    bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
 10. (run right after phase 5) the evaluation plane at phase 3's
-   constants and grid, 100 ticks each: ``chbl`` (one ``route_select``
+   constants and grid, 60 ticks each: ``chbl`` (one ``route_select``
    launch a wave, 800), and midas + cache under the ``no_margin``,
    ``no_pin`` and ``no_bucket`` ablations, the ``aimd``,
    ``deadband_pid`` and ``static`` controllers and the oscillation
-   guard (one ``route_tick`` launch a tick, 100 each), every one bit for
+   guard (one ``route_tick`` launch a tick, 60 each), every one bit for
    bit its plain run; ``round_robin``, ``rr_request``, ``uniform`` and
    ``jsq``, which launch no kernel; phase 5's card-vs-CPU run for every
    new policy and control law, and a 1200-tick guard run whose trips
@@ -70,7 +71,7 @@ Phases:
    constants, served by P = 8 proxies (``fleet_cache``, 100 ms gossip,
    a lag ring of 2 ticks over the 10**6 keys, lease mode) with fleet
    routing (each proxy routes its own wave on its own staggered view),
-   300 ticks with warmup: exactly 300 ``route_tick`` launches (the
+   200 ticks with warmup: exactly 200 ``route_tick`` launches (the
    kernel's per-wave base views), its ticks/s and kernels a tick; the
    plain wave loop bit for bit on every output, dV and the final state
    (the per-proxy counters summing to the aggregates); the Δ = 0
@@ -136,7 +137,7 @@ Phases:
    ``python -m repro_torch.obs.report`` (``--check`` exits 0);
 6. serving at SmolLM-360M's full width and depth (32 layers, d_model
    960, 15 query heads over 5 KV heads; random weights from seed 0):
-   8 requests of a 512-token prompt and 32 greedy decode steps behind a
+   8 requests of a 512-token prompt and 16 greedy decode steps behind a
    4-replica router, counting both attention kernels' launches; the
    same run with the plain attention gives the same tokens, and
    teacher-forced logits of the two agree;
@@ -146,8 +147,8 @@ Phases:
    tokens under the margin rule of phase 8, and their teacher-forced
    logits, on a float32 cache, within the CPU tests' 1e-4);
 8. serving at falcon-mamba-7b's full width (d_model 4096, d_inner
-   8192, d_state 16) cut to 16 of its 64 Mamba-1 layers (random weights
-   from seed 0, 8.9 GB in float32) with phase 6's traffic, counting
+   8192, d_state 16) cut to 8 of its 64 Mamba-1 layers (random weights
+   from seed 0, in float32) with phase 6's traffic, counting
    ``chunk_scan``'s launches (one per layer and 128-token chunk of
    each prompt; decode is plain PyTorch, as in the reference); the
    same run with the plain scan gives the same tokens wherever the
@@ -156,8 +157,8 @@ Phases:
    float32 cache too);
 9. serving at Qwen3-MoE-235B-A22B's full width (d_model 4096, 64 query
    heads over 4 KV heads, head_dim 128, 128 experts top-8 of width
-   1536, midas_d 2, f_max 0.25, vocab 151936) cut to 2 of its 94
-   layers (6.22 B parameters, 24.9 GB in float32, random from seed
+   1536, midas_d 2, f_max 0.25, vocab 151936) cut to 1 of its 94
+   layers (in float32, random from seed
    0) with phase 6's traffic, counting ``dispatch_candidates`` and
    ``dispatch_steer`` (one launch each per layer per prefill and per
    decode step), both attention kernels and no other; tokens under the
@@ -168,13 +169,35 @@ Phases:
    instead; decode ms a token of both;
 15. (run right after phase 9) the audio and vision frontends at full
    width, random weights from seed 0, 4 requests and 16 greedy decode
-   steps behind a 4-replica router: MusicGen-Large at full depth (48
-   layers, d_model 2048; 512 frame embeddings a request; exactly 192
-   ``flash_attention`` and 3072 ``decode_attention`` launches) and
+   steps behind a 4-replica router: MusicGen-Large cut to 24 of its 48
+   layers (d_model 2048; 512 frame embeddings a request; exactly 96
+   ``flash_attention`` and 1536 ``decode_attention`` launches) and
    LLaVA-NeXT-Mistral-7B at full width cut to 8 of 32 layers (576 patch
    embeddings + 512 tokens a request; 32 and 512 launches); tokens equal
    between the kernel and the plain attention, teacher-forced logits
-   within 2e-2.
+   within 2e-2;
+16. (run right after phase 15) training: the flash-attention backward
+   kernels (``flash_attention_bwd.cu``) against ``ref.mha_backward`` at
+   SmolLM-360M's training shape (8, 512, 15, 5, 64) in bfloat16 and
+   float32, Qwen3-MoE's heads, MusicGen's G = 1, gemma2's window and
+   softcap and a ragged S, bitwise on a repeat, timed (CUDA-graph
+   replay) beside the plain version and SDPA, each forward and
+   backward; then SmolLM-360M at
+   full width and depth trained 20 steps at batch 8 x seq 512 through
+   ``repro_torch.launch.train --full-config`` at ``RunConfig``'s
+   defaults (bfloat16 activations, float32 masters, AdamW,
+   ``remat="dots_saveable"``): exactly 64 ``flash_attention`` (32 and
+   32 recomputed) and 32 backward launches a step and no other kernel,
+   the loss falling; 3 steps under each remat policy and "none" (ms a
+   step, tokens/s, peak memory, launches; losses equal bit for bit)
+   and 5 of ``adamw8bit``; 3 float32 steps of the kernel path against
+   the plain path (losses within 1e-4, grad norms within 1e-3); a run
+   at 4 of the 32 layers killed after step 5 and resumed from its
+   asynchronous MIDAS-laned checkpoint of step 4, bitwise the
+   uninterrupted run at step 6; each training smoke config's loss and
+   gradients card against CPU (falcon-mamba and jamba: ``impl="auto"``
+   refuses with the queued ``chunk_scan`` backward, ``impl="ref"``
+   runs).
 
 Every path is driven with every kernel's launch count set to 0 just
 before it and read just after.
@@ -212,7 +235,8 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM float32 on the CUDA cores
 TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 # serving (phase 6): the launcher's shapes at SmolLM-360M's width
-SERVE = dict(requests=8, prompt_len=512, decode_len=32, replicas=4, seed=0)
+# 16 decode steps (cut from 32 for time; PERF.md §4 lists the cuts)
+SERVE = dict(requests=8, prompt_len=512, decode_len=16, replicas=4, seed=0)
 SERVE_LOGIT_TOL = 2e-2  # kernel vs plain teacher-forced logits, rel + abs
 SMALL_LOGIT_TOL = 1e-4  # card vs CPU at the smoke configs, as the CPU tests
 # the exponentials of chunk_scan run on the special-function units: 16
@@ -223,10 +247,10 @@ N_TIMED = 1000  # back-to-back calls per host-side timing
 N_GRAPH = 200  # calls per CUDA graph for device timing
 # MoE serving (phase 9): Qwen3-MoE-235B-A22B at full width, depth cut to
 # 2 of 94 layers for time (the weights are made on the host)
-MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 1  # cut from 2 for time
 # SSM serving (phase 8): falcon-mamba-7b at full width, depth cut to 16
 # of 64 layers for time
-SSM_ARCH, SSM_LAYERS = "falcon-mamba-7b", 16
+SSM_ARCH, SSM_LAYERS = "falcon-mamba-7b", 8  # cut from 16 for time
 MOE_FUSED_REQUESTS = 2  # the f_max = 1 variant's run
 W_TOL = 1e-6  # dispatch weights, kernel vs plain (absolute)
 
@@ -1449,7 +1473,7 @@ def phase_small(np, core):
 # the guard, E1/E2
 # ---------------------------------------------------------------------------
 
-PLANE_TICKS = 100  # each phase-10 run at phase 3's constants
+PLANE_TICKS = 60  # each phase-10 run at phase 3's constants (cut from 100)
 PLANE_VARIANTS = (  # midas + cache under each, through route_tick
     dict(ablate="no_margin"), dict(ablate="no_pin"),
     dict(ablate="no_bucket"), dict(controller="aimd"),
@@ -1613,9 +1637,9 @@ def phase_claims(core, counters):
 
 FLEET = dict(FULL, P=8, policy="midas", middleware=("fleet_cache",),
              fleet_routing=True, gossip_ms=100.0, cache_mode="lease")
-FLEET_TICKS = 300
+FLEET_TICKS = 200  # cut from 300 for time
 FLEET_SCENARIO = "rename_storm"
-FLEET_PROFILE_LEAD = 250  # the 50-tick profiler window starts here
+FLEET_PROFILE_LEAD = 150  # the 50-tick profiler window starts here
 FLEET_POD_TICKS = 100  # the power_of_d fleet run
 FLEET_SMALL_T = 200  # the card-vs-CPU runs at m = 8
 # the four E9 scenarios (benchmarks/fleet.py) and the other composed
@@ -2873,12 +2897,13 @@ def phase_moe(torch, np, serving, counters):
 # (LLaVA-NeXT), 16 greedy decode steps each, 4 replicas
 FRONTEND_TRAFFIC = dict(requests=4, prompt_len=512, decode_len=16,
                         replicas=4, seed=0)
-FRONTENDS = (("musicgen-large", None), ("llava-next-mistral-7b", 8))
+# MusicGen at 24 of its 48 layers (cut from full depth for time)
+FRONTENDS = (("musicgen-large", 24), ("llava-next-mistral-7b", 8))
 
 
 def phase_frontends(torch, np, serving, counters):
-    """MusicGen-Large at full depth and LLaVA-NeXT-Mistral-7B at full
-    width cut to 8 of 32 layers, each served with FRONTEND_TRAFFIC,
+    """MusicGen-Large cut to 24 of 48 layers and LLaVA-NeXT-Mistral-7B
+    cut to 8 of 32 layers, both at full width, each served with FRONTEND_TRAFFIC,
     kernels then plain attention: one flash_attention launch a layer a
     prefill and one decode_attention a layer a decode step, tokens
     equal between the two paths.  Returns the launches of each arch."""
@@ -2910,6 +2935,389 @@ def phase_frontends(torch, np, serving, counters):
         torch.cuda.empty_cache()
         say(f"[15] {full.name} took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, D, window, softcap, dtype): SmolLM-360M's training shape
+# in both dtypes, Qwen3-MoE's heads, MusicGen's G = 1, gemma2's window
+# and softcap (head_dim 256), and a ragged S with a padded head_dim
+FA_BWD_SHAPES = [
+    (8, 512, 15, 5, 64, 0, 0.0, "bfloat16"),
+    (8, 512, 15, 5, 64, 0, 0.0, "float32"),
+    (1, 512, 64, 4, 128, 0, 0.0, "bfloat16"),
+    (1, 512, 32, 32, 64, 0, 0.0, "bfloat16"),
+    (2, 256, 8, 4, 256, 128, 50.0, "float32"),
+    (2, 100, 6, 2, 20, 24, 20.0, "float32"),
+]
+FA_BWD_TRAIN = FA_BWD_SHAPES[0]
+N_BWD = 20  # backward calls a timing
+TRAIN = dict(batch=8, seq=512, steps=20)  # the main path's run
+REMAT_STEPS = 3  # steps a remat policy (and "none") is timed over
+EIGHT_BIT_STEPS = 5
+PLAIN_STEPS = 3  # kernel path against plain path, float32 activations
+RESUME_LAYERS = 4  # the kill-and-resume run: 4 of SmolLM's 32 layers
+LOSS_TOL = 1e-4  # kernel vs plain and card vs CPU: |diff| <= tol (1 + |x|)
+GNORM_TOL = 1e-3
+TRAIN_SMOKE = ("smollm-360m", "gemma2-2b", "musicgen-large",
+               "llava-next-mistral-7b", "qwen3-moe-235b-a22b",
+               "falcon-mamba-7b", "jamba-v0.1-52b")
+
+
+def bwd_tol(dtype):
+    """The backward against ``ref.mha_backward``: |diff| <= tol (max
+    |want| + |want|); float32 1e-4 (the forward's 3xTF32 output and its
+    ex2.approx logsumexp enter p and D = dO . o), bfloat16 2e-2, the
+    forward's tolerance (gradients rounded to bfloat16, D from the
+    bfloat16 output)."""
+    return 2e-2 if dtype == "bfloat16" else 1e-4
+
+
+def fa_bwd_bound(B, S, H, KV, D, window, itemsize):
+    """(bound ms, "bytes" or "operations") of the attention backward:
+    q, k, v, o, dO and the row logsumexp read once, dq, dk, dv written
+    once, against five products of D (10 D operations) per kept pair
+    and head on the tensor cores (bfloat16 at 989 TFLOP/s, float32 as
+    3xTF32 at 495 / 3)."""
+    rate = BF16_FLOP_PER_S if itemsize == 2 else TF32_FLOP_PER_S / 3
+    byts = (4 * B * S * H * D + 4 * B * S * KV * D) * itemsize \
+        + 4 * B * H * S
+    flops = 10 * D * kept_pairs(S, window) * B * H
+    t_b, t_f = byts / HBM_BYTES_PER_S, flops / rate
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def phase_train_kernel(torch, fa_kernel, fa_ref):
+    """The backward kernels against ``ref.mha_backward`` at every case,
+    causal, bitwise on a repeat; times at SmolLM's training shape."""
+    import torch.nn.functional as F
+
+    max_err, row = 0.0, None
+    for shape in FA_BWD_SHAPES:
+        B, S, H, KV, D, window, cap, dtype = shape
+        g = torch.Generator(device="cuda").manual_seed(S + H + D)
+        dt = getattr(torch, dtype)
+        q, k, v, dout = (torch.randn((B, S, n, D), generator=g,
+                                     device="cuda", dtype=dt)
+                         for n in (H, KV, KV, H))
+        kw = dict(causal=True, window=window, softcap=cap)
+        out, lse = fa_kernel._forward(q, k, v, True, window, cap, True)
+        got = fa_kernel.flash_attention_backward(q, k, v, out, dout, lse,
+                                                 **kw)
+        want = fa_ref.mha_backward(q, k, v, dout, **kw)
+        torch.cuda.synchronize()
+        tol, err = bwd_tol(dtype), 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"{shape} {name} not finite")
+            diff = (a - b).abs()
+            scale = b.abs().max().item()
+            check(bool((diff <= tol * (scale + b.abs())).all()),
+                  f"flash_attention_backward {shape} {name}: max |diff| "
+                  f"{diff.max().item():.3g} at scale {scale:.3g}")
+            err = max(err, diff.max().item())
+        again = fa_kernel.flash_attention_backward(q, k, v, out, dout, lse,
+                                                   **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_backward {shape}: a repeated call differs")
+        max_err = max(max_err, err)
+        say(f"[16] flash_attention_backward {shape}: agrees with "
+            f"ref.mha_backward (max |diff| {err:.3g}, tol {tol} x scale), "
+            f"bitwise on a repeat")
+        if shape != FA_BWD_TRAIN:
+            continue
+        k_fn = lambda: fa_kernel.flash_attention_backward(  # noqa: E731
+            q, k, v, out, dout, lse, **kw)
+        p_fn = lambda: fa_ref.mha_backward(q, k, v, dout, **kw)  # noqa
+        qs, ks, vs = (x.detach().transpose(1, 2).requires_grad_(True)
+                      for x in (q, k, v))
+        d_t = dout.transpose(1, 2)
+
+        def l_fn():
+            # SDPA's forward and backward: autograd runs a backward on
+            # its forward's stream, so both go into the graph (as the
+            # plain backward's forward does)
+            out_t = F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out_t, (qs, ks, vs), d_t)
+        bound, by = fa_bwd_bound(B, S, H, KV, D, window, q.element_size())
+        # the plain backward (autograd of ref.mha) and SDPA's replay
+        # from a CUDA graph too, each with its forward
+        row = dict(shape=shape, ms=device_ms(torch, [k_fn], N_BWD),
+                   host_ms=host_ms(torch, k_fn, N_BWD),
+                   plain_ms=device_ms(torch, [p_fn], N_BWD),
+                   library_ms=device_ms(torch, [l_fn], N_BWD),
+                   bound_ms=bound, bound_by=by)
+        say(f"[16] flash_attention_backward {shape}: device "
+            f"{row['ms'] * 1e3:.1f} us (called {row['host_ms'] * 1e3:.1f} "
+            f"us), plain forward + backward {row['plain_ms'] * 1e3:.1f} us,"
+            f" sdpa's forward + backward {row['library_ms'] * 1e3:.1f} us, "
+            f"bound "
+            f"{bound * 1e3:.3f} us ({by})")
+    return row, max_err
+
+
+def train_counts(counters):
+    return (counters["flash_attention"].launches,
+            counters["flash_attention_backward"].launches)
+
+
+def timed_steps(torch, step_fn, state, batches, held=0):
+    """(final state, losses, grad norms, ms a step over all but the
+    first step, peak GB): ``step_fn`` over ``batches`` on the card; the
+    peak counts what the run allocated above ``held`` bytes (memory the
+    caller keeps for other runs, such as a copy of the initial
+    state)."""
+    losses, gnorms, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    ms = 1e3 * sum(times[1:]) / max(len(times) - 1, 1)
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    return state, losses, gnorms, ms, peak
+
+
+def clone_state(torch, state):
+    from repro_torch.utils import tree_map
+
+    return tree_map(torch.clone, state)
+
+
+def states_equal(torch, a, b) -> bool:
+    from repro_torch.utils import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase_train(torch, np, counters):
+    """SmolLM-360M trained at full width on the card: the main path
+    through ``launch.train``, the remat policies, 8-bit AdamW, kernel
+    against plain, kill and resume, and the smoke configs against the
+    CPU.  Returns the main path's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.config import RunConfig, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as tstep
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_arch("smollm-360m")
+    B, S, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    tokens = n * B * S
+    # (b) the main path: the launcher at RunConfig's defaults
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    trainer, state = launch_train.main([
+        "--arch", "smollm-360m", "--full-config", "--steps", str(n),
+        "--batch", str(B), "--seq", str(S)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    fwd, bwd = train_counts(counters)
+    L = cfg.num_layers
+    check(fwd == 2 * L * n and bwd == L * n,
+          f"the main path launched flash_attention {fwd} and its backward "
+          f"{bwd} times, expected {2 * L * n} and {L * n} (dots_saveable "
+          f"recomputes each block's forward)")
+    others = {k: v for k, v in launches.items()
+              if k not in ("flash_attention", "flash_attention_backward")}
+    check(not any(others.values()), f"other kernels launched: {others}")
+    losses = [m["loss"].item() for m in trainer.history]
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(int(state.step) == n, f"the run ended at step {int(state.step)}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5,
+          f"the loss did not fall: {losses}")
+    say(f"[16] {cfg.name} at full width ({L} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, "
+        f"vocab {cfg.vocab_size}), batch {B} x seq {S}, bf16 activations, "
+        f"float32 masters, AdamW, remat dots_saveable, through "
+        f"launch.train: {n} steps in {wall:.1f} s (model made and the "
+        f"first step included), loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"exactly {fwd // n} flash_attention and {bwd // n} backward "
+        f"launches a step ({L} forward + {L} recomputed), no other kernel; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"[16] losses: {[round(x, 4) for x in losses]}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # the remat policies and "none", 8-bit AdamW: the same first steps
+    src = SyntheticLM(cfg, B, S, seed=0)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in
+                src.batch_at(i).items()} for i in range(EIGHT_BIT_STEPS)]
+    run0 = RunConfig()
+    init = tstep.init_train_state(cfg, run0, 0, device="cuda")
+    base = None
+    for policy in ("none", "dots_saveable",
+                   "dots_with_no_batch_dims_saveable", "full"):
+        run = dataclasses.replace(run0, remat_policy=policy)
+        zero_counts(counters)
+        held = torch.cuda.memory_allocated()  # the initial state's copy
+        _, ls, gn, ms, peak = timed_steps(
+            torch, tstep.make_train_step(cfg, run), clone_state(torch, init),
+            batches[:REMAT_STEPS], held)
+        fwd, bwd = train_counts(counters)
+        per = REMAT_STEPS
+        want_fwd = L if policy == "none" else 2 * L
+        check(fwd == want_fwd * per and bwd == L * per,
+              f"remat {policy}: {fwd} and {bwd} launches over {per} steps")
+        if base is None:
+            base = ls
+        check(ls == base, f"remat {policy}: losses {ls} differ from "
+              f"'none''s {base}")
+        say(f"[16] remat {policy:34s}: {ms:8.2f} ms a step "
+            f"({B * S / ms * 1e3:9.0f} tokens/s), peak {peak:6.2f} GB, "
+            f"{fwd // per} + {bwd // per} attention launches a step, "
+            f"losses {ls} (equal to none's bit for bit)")
+    del init
+    torch.cuda.empty_cache()
+    run8 = dataclasses.replace(run0, optimizer="adamw8bit")
+    _, ls8, _, ms8, peak8 = timed_steps(
+        torch, tstep.make_train_step(cfg, run8),
+        tstep.init_train_state(cfg, run8, 0, device="cuda"), batches)
+    check(all(np.isfinite(ls8)) and ls8[0] == base[0] and ls8[-1] < ls8[0],
+          f"adamw8bit losses {ls8}")
+    say(f"[16] adamw8bit, {EIGHT_BIT_STEPS} steps: {ms8:.2f} ms a step, "
+        f"peak {peak8:.2f} GB, losses {ls8}")
+    torch.cuda.empty_cache()
+
+    # (c) kernel path against plain path, float32 activations
+    run32 = RunConfig(activation_dtype="float32", remat_policy="none")
+    init = tstep.init_train_state(cfg, run32, 0, device="cuda")
+    out = {}
+    for impl in ("auto", "ref"):
+        _, ls, gn, ms, _ = timed_steps(
+            torch, tstep.make_train_step(cfg, run32, impl=impl),
+            clone_state(torch, init), batches[:PLAIN_STEPS])
+        out[impl] = (ls, gn, ms)
+    (lk, gk, msk), (lp, gp, msp) = out["auto"], out["ref"]
+    for a, b in zip(lk, lp):
+        check(abs(a - b) <= LOSS_TOL * (1 + abs(b)),
+              f"kernel vs plain losses {lk} and {lp}")
+    for a, b in zip(gk, gp):
+        check(abs(a - b) <= GNORM_TOL * (1 + abs(b)),
+              f"kernel vs plain grad norms {gk} and {gp}")
+    say(f"[16] float32 activations, {PLAIN_STEPS} steps, kernel path "
+        f"against plain path: losses {lk} and {lp} (within {LOSS_TOL}), "
+        f"grad norms {gk} and {gp} (within {GNORM_TOL}); {msk:.1f} "
+        f"against {msp:.1f} ms a step")
+    del init
+    torch.cuda.empty_cache()
+
+    # (d) kill and resume at 4 layers: checkpoints every 2 steps through
+    # the MIDAS lanes; the process dies after step 5, a new one resumes
+    # from step 4 to 6; the uninterrupted run's state bit for bit
+    small = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def trainer(steps, ckpt):
+            tc = TrainerConfig(steps=steps, batch=B, seq=S, ckpt_every=2,
+                               ckpt_dir=ckpt, log_every=steps)
+            return Trainer(small, run0, tc, log_fn=lambda _: None)
+
+        t = trainer(6, None)
+        whole = t.train()
+        t.close()
+        t = trainer(5, tmp)
+        t.train()
+        t.close()
+        t = trainer(6, tmp)
+        resumed_from = t.ckpt.latest_step()
+        resumed = t.train()
+        t.close()
+        check(resumed_from == 4, f"latest checkpoint {resumed_from}")
+        check(states_equal(torch, whole, resumed),
+              "the resumed run's state differs from the uninterrupted one")
+        say(f"[16] kill and resume at {RESUME_LAYERS} of {L} layers: "
+            f"checkpoints at steps 2 and 4 written asynchronously through "
+            f"4 MIDAS lanes, killed after step 5, resumed from step 4 to "
+            f"6: the state equals the uninterrupted run's bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_train_small(torch, np, counters)
+    return launches, dict(tokens=tokens, wall=wall)
+
+
+def phase_train_small(torch, np, counters):
+    """(e) Each smoke config's loss and gradients on the card against
+    the CPU, float32 activations, then one train step on the card:
+    Mamba models refuse the kernel path (``impl="auto"``) and run the
+    plain one.  The MoE's gradient leaves are not compared one by one:
+    a near-tie of two gate logits can send a token to another expert on
+    the card than on the CPU."""
+    from repro_torch.config import RunConfig, get_smoke_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import step as tstep
+    from repro_torch.utils import tree_leaves
+
+    run = RunConfig(activation_dtype="float32", remat_policy="none")
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_arch(arch)
+        batch = SyntheticLM(cfg, 2, 32, seed=0).batch_at(0)
+        impl = "auto"
+        if cfg.mamba is not None:
+            st = tstep.init_train_state(cfg, run, 0, device="cuda")
+            b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+            try:
+                tstep.make_train_step(cfg, run)(st, b)
+            except NotImplementedError as e:
+                check("chunk_scan" in str(e) and "ROADMAP" in str(e),
+                      f"{arch}: the refusal does not name the queue: {e}")
+            else:
+                raise PhaseError(f"{arch}: the chunk_scan kernel trained")
+            impl = "ref"
+        res = {}
+        zero_counts(counters)
+        for dev in ("cuda", "cpu"):
+            st = tstep.init_train_state(cfg, run, 0, device=dev)
+            b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            (loss, _), grads = tstep.value_and_grad(
+                cfg, run, st.params, st.moe_state, b, impl=impl)
+            if dev == "cuda":
+                n = read_counts(counters)
+                # the card's pass ran the kernels' backward or, on the
+                # plain path, none
+                attn = n["flash_attention_backward"] > 0
+                moe = n["dispatch_candidates"] + n["dispatch_fused"] > 0
+                check(attn == (impl == "auto")
+                      and moe == (impl == "auto" and cfg.moe is not None),
+                      f"{arch}: launches {n}")
+            res[dev] = (loss.item(), [g.float().cpu() for g in
+                                      tree_leaves(grads)], st, b)
+        (lc, gc, st, b), (lp, gp, _, _) = res["cuda"], res["cpu"]
+        nc = sum(float((g.double() ** 2).sum()) for g in gc) ** 0.5
+        npu = sum(float((g.double() ** 2).sum()) for g in gp) ** 0.5
+        check(abs(lc - lp) <= LOSS_TOL * (1 + abs(lp))
+              and abs(nc - npu) <= GNORM_TOL * (1 + npu),
+              f"{arch}: card loss {lc}, grad norm {nc}; CPU {lp}, {npu}")
+        worst = 0.0
+        if cfg.moe is None:
+            for a, w in zip(gc, gp):
+                diff = (a - w).abs().max().item()
+                check(diff <= LOSS_TOL * (1 + w.abs().max().item()),
+                      f"{arch}: a gradient leaf differs by {diff:.3g}")
+                worst = max(worst, diff)
+        _, m = tstep.make_train_step(cfg, run, impl=impl)(st, b)
+        check(np.isfinite(m["loss"].item()), f"{arch}: the step's loss")
+        say(f"[16] {arch} smoke, impl {impl}: card loss {lc:.6f}, grad "
+            f"norm {nc:.6f}; CPU {lp:.6f}, {npu:.6f}"
+            + ("" if cfg.moe is not None else
+               f"; gradient leaves within {worst:.3g}")
+            + (" (impl 'auto' refused: no chunk_scan backward)"
+               if impl == "ref" else "") + "; one train step on the card")
 
 
 def kernel_entry(name, source, replaces, launches, max_err, row):
@@ -2958,6 +3366,8 @@ def main() -> int:
     counters = {"route_select": kernel.route_select,
                 "route_tick": kernel.route_tick,
                 "flash_attention": fa_kernel.flash_attention,
+                "flash_attention_backward":
+                    fa_kernel.flash_attention_backward,
                 "decode_attention": da_kernel.decode_attention,
                 "chunk_scan": cs_kernel.chunk_scan,
                 "dispatch_candidates": kernel.dispatch_candidates,
@@ -2966,10 +3376,11 @@ def main() -> int:
     sources = [(kernel.SOURCE, kernel.FLAGS),
                (kernel.DISPATCH_SOURCE, kernel.FLAGS),
                (fa_kernel.SOURCE, fa_kernel.FLAGS),
+               (fa_kernel.BWD_SOURCE, fa_kernel.FLAGS),
                (da_kernel.SOURCE, da_kernel.FLAGS),
                (cs_kernel.SOURCE, cs_kernel.FLAGS)]
     loaders = [kernel.build, kernel.build_dispatch, fa_kernel.build,
-               da_kernel.build, cs_kernel.build]
+               fa_kernel.build_backward, da_kernel.build, cs_kernel.build]
     t_start = time.perf_counter()
     try:
         phase_build(torch, _build, sources, loaders)
@@ -3035,6 +3446,10 @@ def main() -> int:
         t15 = time.perf_counter()
         fe_launches = phase_frontends(torch, np, serving, counters)
         say(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
+        t16 = time.perf_counter()
+        bwd_row, bwd_err = phase_train_kernel(torch, fa_kernel, fa_ref)
+        train_launches, _ = phase_train(torch, np, counters)
+        say(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3053,7 +3468,7 @@ def main() -> int:
     # each attention kernel's launches over every serving path
     attn = {name: sum(run[name] for run in (
         serve_launches, moe_launches, fused_launches,
-        *fe_launches.values()))
+        *fe_launches.values(), train_launches))
         for name in ("flash_attention", "decode_attention")}
     csrc = "src/repro_torch/kernels/{0}/csrc/{1}.cu"
     mr_src = csrc.format("midas_route", "midas_dispatch")
@@ -3077,6 +3492,11 @@ def main() -> int:
                      "src/repro/kernels/flash_attention/kernel.py:110",
                      attn["flash_attention"],
                      attn_err["flash_attention"], fa_row),
+        kernel_entry("flash_attention_backward",
+                     csrc.format("flash_attention", "flash_attention_bwd"),
+                     "src/repro/kernels/flash_attention/kernel.py:110",
+                     train_launches["flash_attention_backward"], bwd_err,
+                     bwd_row),
         kernel_entry("decode_attention",
                      csrc.format("decode_attention", "decode_attention"),
                      "src/repro/kernels/decode_attention/kernel.py:93",

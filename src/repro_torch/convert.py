@@ -198,3 +198,92 @@ def moe_state_from_numpy(cfg: ArchConfig, tree: Any,
                              f"expected {tuple(t.shape)}")
         out[pos] = arr.to(dtype=torch.float32, device=t.device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training state: the reference's trees, both ways
+# ---------------------------------------------------------------------------
+
+
+def params_tree(model: Model) -> Dict[str, Any]:
+    """The model's weights as the reference's parameter tree of tensors
+    (new tensors on the model's device, detached): nested dicts with the
+    reference's leaf names, each block leaf stacked along a leading
+    ``num_blocks`` axis, as its ``init_params`` makes the tree.  The
+    training state keeps its float32 masters so (``train/step.py``)."""
+    tree: Dict[str, Any] = {}
+    blocks: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            blocks.setdefault("/".join(parts[2:]), []).append(p.detach())
+            continue
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = p.detach().clone()
+    for path, leaves in blocks.items():
+        node = tree.setdefault("blocks", {})
+        keys = path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = torch.stack(leaves)
+    return tree
+
+
+def _numpy(t) -> np.ndarray:
+    if not torch.is_tensor(t):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # jax's dependency; only for bfloat16 leaves
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """A tree of tensors or numpy arrays (dicts, tuples, NamedTuples;
+    None kept) as numpy leaves on the host, the structure the reference's checkpoints and
+    ``jax.device_get`` hold."""
+    from repro_torch.utils import tree_map
+
+    return tree_map(_numpy, tree)
+
+
+def tree_from_numpy(tree: Any, device=None) -> Any:
+    """A tree of numpy leaves as tensors on ``device`` (the card when
+    None), the structure kept; bfloat16 leaves keep their bits."""
+    from repro_torch.utils import tree_map
+
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a).to(dev), tree)
+
+
+def params_to_numpy(model: Model) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the model's weights as
+    the reference's parameter tree of numpy arrays (blocks stacked)."""
+    return tree_to_numpy(params_tree(model))
+
+
+def adam_state_from_numpy(state: Any, device=None):
+    """The reference's ``AdamState`` (numpy leaves; ``m_scale`` and
+    ``v_scale`` None unless 8-bit) as the port's on ``device``: float32
+    moments, or int8 payloads (n_blocks, 256) and float32 scales."""
+    from repro_torch.train.optimizer import AdamState
+
+    return AdamState(*(None if f is None else tree_from_numpy(f, device)
+                       for f in state))
+
+
+def adam_state_to_numpy(state) -> Any:
+    """The port's ``AdamState`` as the reference's, numpy leaves."""
+    from repro_torch.train.optimizer import AdamState
+
+    return AdamState(*(None if f is None else tree_to_numpy(f)
+                       for f in state))
+
+
+def moe_state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`moe_state_from_numpy`."""
+    return {pos: _numpy(t) for pos, t in state.items()}

@@ -45,6 +45,20 @@ def resolve_impl(name: str, device, option: str = "impl") -> str:
     return name
 
 
+def refuse_grad(name: str, why: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when autograd would need the
+    gradient of kernel ``name``, which it does not have (``why`` says
+    where it is queued or what to call instead): gradients are enabled
+    and one of ``tensors`` requires one.  A kernel wrapper calls this
+    before its device checks, so that a result never leaves it without
+    a gradient path."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel: {why}"
+        )
+
+
 def check_tensor(name, t, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
     on ``device``: what a kernel wrapper checks before it passes a

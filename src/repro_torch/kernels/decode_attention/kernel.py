@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_tensor
+from repro_torch.kernels.common import check_tensor, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 FLAGS = ()  # held to a tolerance, so fused multiply-adds are allowed
@@ -50,6 +50,12 @@ MAX_SMEM = 232448 - 1024  # dynamic shared memory a block opts into
 # graph captured with it stays valid
 _COUNTERS: Dict[Tuple[int, int], List[torch.Tensor]] = {}
 _WORKSPACES: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+# why decode_attention refuses autograd: it serves decoding only
+BACKWARD_QUEUED = (
+    "it serves decoding only (ROADMAP §2, backward kernels: training "
+    "differentiates flash_attention, whose backward is a kernel)"
+)
+
 
 def record_floats(G: int, D: int) -> int:
     """Floats of one partial state: acc (G, D), m (G,) and l (G,),
@@ -142,7 +148,10 @@ def decode_attention(
     """Launch the CUDA kernel; arguments and result as
     :func:`repro_torch.kernels.decode_attention.ref.decode_attention`,
     with ``pos`` an int32 tensor on the card.  The logits are scaled by
-    multiplying with ``1/sqrt(D)``, as the Pallas kernel does."""
+    multiplying with ``1/sqrt(D)``, as the Pallas kernel does.  It
+    serves decoding only: under autograd it raises
+    ``NotImplementedError``."""
+    refuse_grad("decode_attention", BACKWARD_QUEUED, q, k_cache, v_cache)
     if q.device.type != "cuda":
         raise ValueError(
             f"the CUDA decode_attention needs tensors on a CUDA device, "

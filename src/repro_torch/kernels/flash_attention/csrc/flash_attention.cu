@@ -220,9 +220,10 @@ __device__ __forceinline__ void load_rows(T* dst, int rows, int D, bool vec,
 template <typename T, int DP, int KS>
 __global__ void __launch_bounds__(256, 1)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int B, int S,
-              int H, int KV, int D, float scale, int causal, int window,
-              float softcap, int gh, int nb, int vec) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int B, int S, int H, int KV, int D,
+              float scale, int causal, int window, float softcap, int gh,
+              int nb, int vec) {
   constexpr int BK = key_tile<DP>();
   constexpr int NJ = BK / 8 / KS;  // 8-key column groups a warp takes
   constexpr int ND = DP / 8;       // 8-dim column groups of the output
@@ -582,6 +583,9 @@ __global__ void __launch_bounds__(256, 1)
     const int qi = qi0 + 8 * r;
     if (qi >= S) continue;
     const float lr = fmaxf(l[r], 1e-30f);
+    // the row's logsumexp in log2 units, which the backward reads
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<size_t>(b) * H + head) * S + qi] = m[r] + log2f(lr);
     T* orow = o + (static_cast<size_t>(b) * S + qi) * q_stride +
               static_cast<size_t>(head) * D;
 #pragma unroll
@@ -605,9 +609,9 @@ size_t smem_bytes(int gh, int nb, int ks) {
 }
 
 template <typename T, int DP, int KS>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int D, float scale, int causal, int window,
-           float softcap, int gh, int nb, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int D, float scale, int causal,
+           int window, float softcap, int gh, int nb, cudaStream_t stream) {
   const int nw = gh * nb * KS;
   if (nw > max_warps<DP>()) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T, DP>(gh, nb, KS);
@@ -632,43 +636,43 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd<T, DP, KS>
       <<<static_cast<unsigned>(units), 32 * nw, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), B, S, H, KV, D,
-          scale, causal, window, softcap, gh, nb, vec);
+          static_cast<const T*>(v), static_cast<T*>(o), lse, B, S, H, KV,
+          D, scale, causal, window, softcap, gh, nb, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DP>
-int launch_ks(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int D, float scale, int causal,
-              int window, float softcap, int gh, int nb, int ks,
+int launch_ks(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int KV, int D, float scale,
+              int causal, int window, float softcap, int gh, int nb, int ks,
               cudaStream_t stream) {
   if (ks == 1)
-    return launch<T, DP, 1>(q, k, v, o, B, S, H, KV, D, scale, causal,
+    return launch<T, DP, 1>(q, k, v, o, lse, B, S, H, KV, D, scale, causal,
                             window, softcap, gh, nb, stream);
   if (ks == 2)
-    return launch<T, DP, 2>(q, k, v, o, B, S, H, KV, D, scale, causal,
+    return launch<T, DP, 2>(q, k, v, o, lse, B, S, H, KV, D, scale, causal,
                             window, softcap, gh, nb, stream);
   if constexpr (DP < 256) {
     if (ks == 4)
-      return launch<T, DP, 4>(q, k, v, o, B, S, H, KV, D, scale, causal,
-                              window, softcap, gh, nb, stream);
+      return launch<T, DP, 4>(q, k, v, o, lse, B, S, H, KV, D, scale,
+                              causal, window, softcap, gh, nb, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
-int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KV, int D, float scale, int causal,
-              int window, float softcap, int gh, int nb, int ks,
+int launch_dp(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int H, int KV, int D, float scale,
+              int causal, int window, float softcap, int gh, int nb, int ks,
               cudaStream_t stream) {
   if (D <= 64)
-    return launch_ks<T, 64>(q, k, v, o, B, S, H, KV, D, scale, causal,
+    return launch_ks<T, 64>(q, k, v, o, lse, B, S, H, KV, D, scale, causal,
                             window, softcap, gh, nb, ks, stream);
   if (D <= 128)
-    return launch_ks<T, 128>(q, k, v, o, B, S, H, KV, D, scale, causal,
-                             window, softcap, gh, nb, ks, stream);
-  return launch_ks<T, 256>(q, k, v, o, B, S, H, KV, D, scale, causal,
-                           window, softcap, gh, nb, ks, stream);
+    return launch_ks<T, 128>(q, k, v, o, lse, B, S, H, KV, D, scale,
+                             causal, window, softcap, gh, nb, ks, stream);
+  return launch_ks<T, 256>(q, k, v, o, lse, B, S, H, KV, D, scale,
+                           causal, window, softcap, gh, nb, ks, stream);
 }
 
 }  // namespace
@@ -679,23 +683,26 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int B,
 // stacks gh query heads of a KV group (gh divides H / KV) and nb 16-row
 // strips, with ks warps splitting each strip's keys (1, 2 or 4; 1 or 2
 // for D > 128): gh nb ks warps, at most 8 (4 for D > 128).  stream is a
-// cudaStream_t.  Returns the cudaError_t of the launch (0 on success).
+// cudaStream_t.  lse, when not null, receives each row's logsumexp of the
+// scaled, capped and masked logits in log2 units, (B, H, S) float32, for
+// the backward (flash_attention_bwd.cu).  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int H, int KV, int D, int dtype,
-                                      float scale, int causal, int window,
-                                      float softcap, int gh, int nb, int ks,
-                                      void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int B, int S, int H, int KV, int D,
+                                      int dtype, float scale, int causal,
+                                      int window, float softcap, int gh,
+                                      int nb, int ks, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || gh < 1 || nb < 1 ||
       (H / KV) % gh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dp<float>(q, k, v, o, B, S, H, KV, D, scale, causal,
+    return launch_dp<float>(q, k, v, o, lse, B, S, H, KV, D, scale, causal,
                             window, softcap, gh, nb, ks, st);
   if (dtype == 1)
-    return launch_dp<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, scale,
+    return launch_dp<__nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, D, scale,
                                     causal, window, softcap, gh, nb, ks, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,20 @@
-"""CUDA ``flash_attention`` for Hopper: build, bind and launch.
+"""CUDA ``flash_attention`` for Hopper and its gradient: build, bind and
+launch.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention/kernel.py:flash_attention`` (``_body``).
-It is built with ``nvcc`` at first use (``kernels/_build.py``) and
-called through ``ctypes`` on PyTorch's current stream.  The wrapper
-checks device, dtype, shape and contiguity, picks the block's tiling
-(:func:`tile_plan`), allocates the output, and adds one to
-``flash_attention.launches`` for every launch; there is no fallback: a
-tensor not on a CUDA device raises.
+The forward kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
+kernel ``repro/kernels/flash_attention/kernel.py:flash_attention``
+(``_body``).  The backward (``csrc/flash_attention_bwd.cu``) replaces no
+TPU kernel: the JAX package differentiates the plain ``ref.mha`` off
+the TPU, and training on the card needs the gradient of the forward
+kernel.  Both are built with ``nvcc`` at first use
+(``kernels/_build.py``) and called through ``ctypes`` on PyTorch's
+current stream.  The wrappers check device, dtype, shape and
+contiguity, allocate the outputs, and add one to
+``flash_attention.launches`` or ``flash_attention_backward.launches``
+for every launch; there is no fallback: a tensor not on a CUDA device
+raises.  Under autograd (gradients enabled and an input that requires
+one) :func:`flash_attention` runs through :class:`FlashAttention`, whose
+forward also writes the row logsumexp the backward reads.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensor
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 FLAGS = ()  # held to a tolerance, so fused multiply-adds are allowed
 MAX_D = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,7 +72,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         # declared, or ctypes would pass each pointer as a 32-bit int
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
@@ -72,25 +80,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE, FLAGS)
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+            + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def build() -> Tuple[float, str]:
-    """Build and load the kernel; returns (build seconds, nvcc log)."""
+    """Build and load the forward kernel; returns (build seconds, nvcc
+    log)."""
     _lib()
     return _build.build_info(SOURCE)
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: int = 0,
-    softcap: float = 0.0,
-) -> torch.Tensor:
-    """Launch the CUDA kernel; arguments and result as
-    :func:`repro_torch.kernels.flash_attention.ref.mha`.  The logits
-    are scaled by multiplying with ``1/sqrt(D)``, as the Pallas kernel
-    does."""
+def build_backward() -> Tuple[float, str]:
+    """Build and load the backward kernels; returns (build seconds, nvcc
+    log)."""
+    _bwd_lib()
+    return _build.build_info(BWD_SOURCE)
+
+
+def _check(q, k, v) -> None:
     if q.device.type != "cuda":
         raise ValueError(
             f"the CUDA flash_attention needs tensors on a CUDA device, got "
@@ -112,15 +129,26 @@ def flash_attention(
     check_tensor("q", q, q.dtype, (B, S, H, D), q.device)
     check_tensor("k", k, q.dtype, (B, S, KV, D), q.device)
     check_tensor("v", v, q.dtype, (B, S, KV, D), q.device)
+
+
+def _forward(q, k, v, causal, window, softcap, with_lse: bool):
+    """One launch of the forward kernel: (out, the row logsumexp in log2
+    units (B, H, S) float32 or None)."""
+    _check(q, k, v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if B * S == 0:
-        return out
+        return out, lse
     gh, nb, ks = _plan(B, S, H, KV, D)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
             B, S, H, KV, D, DTYPES[q.dtype], 1.0 / math.sqrt(D),
             int(causal), int(window), float(softcap), gh, nb, ks, stream,
         )
@@ -129,7 +157,98 @@ def flash_attention(
             f"flash_attention launch failed: cudaError {err}"
         )
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
+    output ``out``, the output's gradient ``dout`` (both (B, S, H, D) in
+    q's dtype) and the forward's row logsumexp ``lse`` (B, H, S) float32
+    in log2 units: one call of the backward kernels (``bwd_delta``,
+    ``bwd_dkdv``, ``bwd_dq`` in order; no atomics, so a repeated call is
+    bitwise equal).  The gradients are in q's dtype, dk and dv summed
+    over each KV head's query heads."""
+    _check(q, k, v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    check_tensor("out", out, q.dtype, (B, S, H, D), q.device)
+    check_tensor("dout", dout, q.dtype, (B, S, H, D), q.device)
+    check_tensor("lse", lse, torch.float32, (B, H, S), q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B * S == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, H, KV, D, DTYPES[q.dtype], 1.0 / math.sqrt(D),
+            int(causal), int(window), float(softcap), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_backward launch failed: cudaError {err}"
+        )
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with its row logsumexp saved, and the backward
+    kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout.to(q.dtype).contiguous(), lse, causal=causal,
+            window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Launch the CUDA kernel; arguments and result as
+    :func:`repro_torch.kernels.flash_attention.ref.mha`.  The logits
+    are scaled by multiplying with ``1/sqrt(D)``, as the Pallas kernel
+    does.  Under autograd the result carries the backward kernels as its
+    gradient (:class:`FlashAttention`)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, False)[0]
 
 
 flash_attention.launches = 0

@@ -42,3 +42,22 @@ def mha(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def mha_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+):
+    """(dq, dk, dv): the gradient of :func:`mha` at (q, k, v) against
+    the output gradient ``dout``, by autograd (the plain version the
+    backward kernel is held to)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = mha(qq, kk, vv, causal=causal, window=window, softcap=softcap)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensor as _check
+from repro_torch.kernels.common import refuse_grad
 from repro_torch.kernels.midas_route.ref import (
     ROUTE_MODES,
     check_mode,
@@ -268,7 +269,13 @@ route_tick.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# the dispatch kernels differentiate only through ops.midas_dispatch
+DISPATCH_GRAD = ("call ops.midas_dispatch, whose autograd function scatters "
+                 "the weights' gradient into the gate logits")
+
+
 def _check_logits(gate_logits: torch.Tensor, kd: int) -> Tuple[int, int]:
+    refuse_grad("the dispatch kernels", DISPATCH_GRAD, gate_logits)
     if gate_logits.device.type != "cuda":
         raise ValueError(
             f"the CUDA dispatch kernels need tensors on a CUDA device, got "
@@ -402,6 +409,7 @@ def dispatch_steer(
     (E,) float32 ``load``.  Returns (experts (T, k) int32, weights (T, k)
     float32, steered (T, k) bool): experts and steered bit for bit the
     plain version's, weights within 1e-6."""
+    refuse_grad("dispatch_steer", DISPATCH_GRAD, vals, load)
     if cand.device.type != "cuda":
         raise ValueError(
             f"the CUDA dispatch_steer needs tensors on a CUDA device, got "

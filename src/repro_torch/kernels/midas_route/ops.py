@@ -19,6 +19,35 @@ expert_load = ref.expert_load
 route_tick = kernel.route_tick
 
 
+class _DispatchGrad(torch.autograd.Function):
+    """The dispatch kernels' result with a gradient for the weights:
+    ``weights = softmax`` of the chosen experts' gate logits over the k
+    slots, so the gate logits' gradient is the softmax's gradient
+    scattered to the chosen experts (zero elsewhere), as ``jax.grad``
+    of the reference's dispatch gives it through ``top_k`` and
+    ``take_along_axis``.  The experts and flags carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, gate_logits, run):
+        experts, weights, steered = run(gate_logits.detach())
+        ctx.save_for_backward(experts, weights)
+        ctx.shape = gate_logits.shape
+        ctx.mark_non_differentiable(experts, steered)
+        return experts, weights, steered
+
+    @staticmethod
+    def backward(ctx, _g_experts, g_weights, _g_steered):
+        experts, weights = ctx.saved_tensors
+        g_weights = g_weights.float()
+        dot = (g_weights * weights).sum(dim=-1, keepdim=True)
+        g_chosen = weights * (g_weights - dot)
+        grad = torch.zeros(ctx.shape, dtype=torch.float32,
+                           device=weights.device)
+        # the k experts of a token differ: each cell is written once
+        grad.scatter_(1, experts.long(), g_chosen)
+        return grad, None
+
+
 def midas_dispatch(
     gate_logits: torch.Tensor,
     load: torch.Tensor,
@@ -41,19 +70,31 @@ def midas_dispatch(
     batch-wide quantile and the steering of ``ref.steer_from_candidates``
     (which the plain path runs).  With ``d_eff = min(d, E - k) <= 0``
     there is nothing to steer and every impl runs plain top-k, as the
-    reference kernel does."""
+    reference kernel does.
+
+    Under autograd the plain path differentiates as it is and the kernel
+    path through :class:`_DispatchGrad`: the weights' gradient reaches
+    ``gate_logits`` at the chosen experts (``load`` gets none, as in the
+    reference, where it only steers)."""
     impl = resolve_impl(impl, gate_logits.device)
     E = gate_logits.shape[-1]
     d_eff = min(d, E - k)
     kw = dict(delta_l=delta_l, gate_slack=gate_slack)
     if impl == "ref" or d_eff <= 0:
         return ref.midas_dispatch(gate_logits, load, k, d, f_max=f_max, **kw)
-    logits = gate_logits.float().contiguous()
-    loadf = load.float().contiguous()
-    if f_max >= 1.0:
-        return kernel.dispatch_fused(logits, loadf, k, d_eff, **kw)
-    cand, vals = kernel.dispatch_candidates(logits, k + d_eff)
-    return kernel.dispatch_steer(cand, vals, loadf, k, f_max=f_max, **kw)
+    loadf = load.detach().float().contiguous()
+
+    def run(logits):
+        logits = logits.float().contiguous()
+        if f_max >= 1.0:
+            return kernel.dispatch_fused(logits, loadf, k, d_eff, **kw)
+        cand, vals = kernel.dispatch_candidates(logits, k + d_eff)
+        return kernel.dispatch_steer(cand, vals, loadf, k, f_max=f_max,
+                                     **kw)
+
+    if torch.is_grad_enabled() and gate_logits.requires_grad:
+        return _DispatchGrad.apply(gate_logits, run)
+    return run(gate_logits)
 
 
 def route_waves(

@@ -18,12 +18,19 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_tensor
+from repro_torch.kernels.common import check_tensor, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "chunk_scan.cu"
 FLAGS = ()  # held to a tolerance, so fused multiply-adds are allowed
 MAX_ST = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# why chunk_scan refuses autograd: its gradient is a kernel still to write
+BACKWARD_QUEUED = (
+    "its backward, a reverse-scan kernel, is queued (ROADMAP §2, backward "
+    "kernels: the chunk_scan backward); to train a Mamba model on the card "
+    "pass impl='ref'"
+)
 
 
 def _lib() -> ctypes.CDLL:
@@ -54,7 +61,9 @@ def chunk_scan(
     """Launch the CUDA kernel; arguments and result as
     :func:`repro_torch.kernels.ssm_scan.ref.chunk_scan`.  h0 and A are
     float32; x, dt, B and C are float32 or bfloat16, one dtype for the
-    four; ST is at most 64."""
+    four; ST is at most 64.  Under autograd it raises
+    ``NotImplementedError``: its backward (a reverse scan) is queued."""
+    refuse_grad("chunk_scan", BACKWARD_QUEUED, h0, x, dt, A, B, C)
     if x.device.type != "cuda":
         raise ValueError(
             f"the CUDA chunk_scan needs tensors on a CUDA device, got "

@@ -9,6 +9,8 @@ from repro_torch.models.model import (  # noqa: F401
     init_decode_cache,
     init_moe_state,
     init_params,
+    loss_fn,
     num_blocks,
     prefill,
+    remat_context,
 )

@@ -3,9 +3,10 @@
 The counterparts of ``repro/models/layers.py``, as ``nn.Module``s.
 Weights keep the reference's layouts (``wq`` is (d, H, hd), ``wo`` is
 (H, hd, d), the embedding table is (V, d)), so converting a reference
-parameter tree is a plain copy.  Projections are ``torch.einsum``, as
-the reference leaves them to XLA; attention goes through the ported
-kernels' dispatchers.
+parameter tree is a plain copy.  Projections are ``torch.einsum`` (on
+operands promoted to a common dtype, :func:`einsum`), as the reference
+leaves them to XLA; attention goes through the ported kernels'
+dispatchers.
 """
 
 from __future__ import annotations
@@ -24,9 +25,19 @@ from repro_torch.kernels.flash_attention import ops as fa
 def _param(shape, device, dtype) -> nn.Parameter:
     """An uninitialised weight; :func:`repro_torch.models.init_params`
     or ``convert.params_from_numpy`` fills it.  Serving needs no
-    gradients, so none are tracked."""
+    gradients, so none are tracked; training differentiates its own
+    float32 masters (``train/step.py``)."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands promoted to their common dtype,
+    as ``jnp.einsum`` promotes them: under mixed precision a float32
+    bias or activation meets a bfloat16 weight (MusicGen's MLP, the
+    Mamba mixer's float32 conv output)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -121,9 +132,9 @@ class Attention(nn.Module):
             self.bv = _param((KV, hd), device, dtype)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq)
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk)
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv)
+        q = einsum("bsd,dhk->bshk", x, self.wq)
+        k = einsum("bsd,dhk->bshk", x, self.wk)
+        v = einsum("bsd,dhk->bshk", x, self.wv)
         if self.cfg.qkv_bias:
             q = q + self.bq
             k = k + self.bk
@@ -144,7 +155,7 @@ class Attention(nn.Module):
             q, k, v, causal=True, window=_window(self.cfg, is_local),
             softcap=self.cfg.logit_softcap, impl=impl,
         )
-        y = torch.einsum("bshk,hkd->bsd", out, self.wo)
+        y = einsum("bshk,hkd->bsd", out, self.wo)
         if return_kv:
             return y, {"k": k, "v": v}
         return y
@@ -168,7 +179,7 @@ class Attention(nn.Module):
             window=_window(self.cfg, is_local),
             softcap=self.cfg.logit_softcap, impl=impl,
         )
-        return torch.einsum("bhk,hkd->bd", out, self.wo)[:, None, :]
+        return einsum("bhk,hkd->bd", out, self.wo)[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +213,12 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.act == "gelu_plain":
-            h = _gelu(torch.einsum("bsd,df->bsf", x, self.w1) + self.b1)
-            return torch.einsum("bsf,fd->bsd", h, self.w2) + self.b2
+            h = _gelu(einsum("bsd,df->bsf", x, self.w1) + self.b1)
+            return einsum("bsf,fd->bsd", h, self.w2) + self.b2
         act = F.silu if self.act == "silu" else _gelu
-        g = torch.einsum("bsd,df->bsf", x, self.w_gate)
-        u = torch.einsum("bsd,df->bsf", x, self.w_up)
-        return torch.einsum("bsf,fd->bsd", act(g) * u, self.w_down)
+        g = einsum("bsd,df->bsf", x, self.w_gate)
+        u = einsum("bsd,df->bsf", x, self.w_up)
+        return einsum("bsf,fd->bsd", act(g) * u, self.w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +246,8 @@ class Embed(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            out = torch.einsum("bsd,vd->bsv", x, self.tokens)
+            out = einsum("bsd,vd->bsv", x, self.tokens)
         else:
-            out = torch.einsum("bsd,dv->bsv", x, self.head)
+            out = einsum("bsd,dv->bsv", x, self.head)
         return softcap(out, self.cfg.final_softcap)
 

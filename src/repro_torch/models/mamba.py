@@ -20,7 +20,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
-from repro_torch.models.layers import _param
+from repro_torch.models.layers import _param, einsum
 
 
 def dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
@@ -67,11 +67,11 @@ class Mamba(nn.Module):
 
     def _ssm_inputs(self, xc: torch.Tensor):
         _, st, _, dtr = dims(self.cfg)
-        proj = torch.einsum("...d,dk->...k", xc, self.x_proj)
+        proj = einsum("...d,dk->...k", xc, self.x_proj)
         dt_r, Bm, Cm = proj.split([dtr, st, st], dim=-1)
         # F.softplus is linear above 20, jax.nn.softplus is
         # logaddexp(x, 0): equal there in float32
-        dt = F.softplus(torch.einsum("...r,rd->...d", dt_r, self.dt_w)
+        dt = F.softplus(einsum("...r,rd->...d", dt_r, self.dt_w)
                         + self.dt_b)
         A = -torch.exp(self.A_log.float())
         return dt, A, Bm, Cm
@@ -89,13 +89,13 @@ class Mamba(nn.Module):
                 f"d_conv - 1 = {dc - 1}; the decode step needs that many "
                 f"rows of the conv window"
             )
-        xz = torch.einsum("bsd,dk->bsk", x, self.in_proj)
+        xz = einsum("bsd,dk->bsk", x, self.in_proj)
         xc_pre, z = xz.chunk(2, dim=-1)
         xc = F.silu(_causal_conv(xc_pre, self.conv_w, self.conv_b))
         dt, A, Bm, Cm = self._ssm_inputs(xc)
         y, h = ssm_ops.selective_scan(xc, dt, A, Bm, Cm, self.D, impl=impl)
         y = y * F.silu(z)
-        out = torch.einsum("bsk,kd->bsd", y, self.out_proj)
+        out = einsum("bsk,kd->bsd", y, self.out_proj)
         if return_state:
             return out, {"h": h, "conv": xc_pre[:, x.shape[1] - (dc - 1):]}
         return out
@@ -109,18 +109,18 @@ class Mamba(nn.Module):
         new h and the shifted conv window into ``cache_h`` and
         ``cache_conv`` in place.  The window is built by ``cat`` before
         the write, so the shift never reads a row it overwrote."""
-        xz = torch.einsum("bsd,dk->bsk", x, self.in_proj)
+        xz = einsum("bsd,dk->bsk", x, self.in_proj)
         xc, z = xz.chunk(2, dim=-1)
         xc = xc[:, 0]  # (B, DI)
         window = torch.cat([cache_conv, xc[:, None].to(cache_conv.dtype)],
                            dim=1)  # (B, dc, DI)
-        conv = (torch.einsum("bkd,dk->bd", window.to(xc.dtype), self.conv_w)
+        conv = (einsum("bkd,dk->bd", window.to(xc.dtype), self.conv_w)
                 + self.conv_b)
         xcs = F.silu(conv)
         dt, A, Bm, Cm = self._ssm_inputs(xcs)
         y, h = ssm_ops.selective_step(xcs, dt, A, Bm, Cm, self.D, cache_h)
         y = y * F.silu(z[:, 0])
-        out = torch.einsum("bk,kd->bd", y, self.out_proj)[:, None]
+        out = einsum("bk,kd->bd", y, self.out_proj)[:, None]
         cache_h.copy_(h)
         cache_conv.copy_(window[:, 1:])
         return out

@@ -19,17 +19,23 @@ The audio and vision archs (MusicGen, LLaVA-NeXT) embed their inputs
 through the frontends of ``stubs.py``: ``batch["frames"]`` (B, S,
 d_model) plus sinusoidal positions in place of token embeddings, or
 ``batch["patches"]`` (B, P, d_model) projected and prepended to the
-token embeddings; decoding embeds tokens for both.  Rematerialisation
-raises ``NotImplementedError`` naming its ROADMAP item.  There is no
-loss and no backward yet: the functions here run without autograd.
+token embeddings; decoding embeds tokens for both.
+
+Training: :func:`forward` runs under autograd (prefill and decode do
+not), :func:`loss_fn` is the reference's next-token cross entropy with
+the MoE metrics and aux loss, and ``remat_policy`` checkpoints each
+block as the reference's ``jax.checkpoint`` wraps its scan body
+(:func:`remat_context`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.common import resolve_device
@@ -72,12 +78,40 @@ def _layer_has_ffn(cfg: ArchConfig) -> bool:
     return cfg.family != "ssm"
 
 
-def _check_remat(remat_policy: str) -> None:
-    if remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported yet; it comes "
-            f"with training (ROADMAP §1 item 18)"
-        )
+REMAT_POLICIES = ("none", "full", "dots_saveable",
+                  "dots_with_no_batch_dims_saveable")
+# the ops the reference's einsums lower to: jax.checkpoint_policies'
+# dots_saveable keeps every dot's output, dots_with_no_batch_dims_saveable
+# those without batch dimensions (the batched ones are bmm)
+_DOTS = {
+    "dots_saveable": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default),
+    "dots_with_no_batch_dims_saveable": (torch.ops.aten.mm.default,
+                                         torch.ops.aten.addmm.default),
+}
+
+
+def _save_dots(saved, ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(remat_policy: str):
+    """None for "none" (keep every activation), else the checkpoint's
+    ``context_fn``: "full" saves only the block's inputs and recomputes
+    the rest in the backward; the dots policies save the outputs of the
+    matrix products (:data:`_DOTS`) and recompute the rest (selective
+    checkpointing).  Raises ``ValueError`` on another name."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; "
+                         f"available: {', '.join(REMAT_POLICIES)}")
+    if remat_policy == "none":
+        return None
+    if remat_policy == "full":
+        return ckpt.noop_context_fn
+    policy = functools.partial(_save_dots, _DOTS[remat_policy])
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
 
 
 class Layer(nn.Module):
@@ -143,6 +177,23 @@ class Layer(nn.Module):
         return self._ffn(x + mix, None, impl)[0]
 
 
+class Block(nn.ModuleDict):
+    """One block: the layers of ``block_pattern`` by position ("0",
+    "1", ...), applied in order."""
+
+    def forward(self, x: torch.Tensor, loads: Dict[str, torch.Tensor],
+                impl: str):
+        """(x, {pos: MoEAux}) of the block's layers on x, an MoE layer
+        under the telemetry ``loads[pos]`` (balanced when absent)."""
+        auxes = {}
+        for i in range(len(self)):
+            x, _, aux = self[str(i)](x, impl=impl,
+                                     moe_load=loads.get(str(i)))
+            if aux is not None:
+                auxes[str(i)] = aux
+        return x, auxes
+
+
 class Model(nn.Module):
     """Embedding, ``num_blocks`` blocks of ``block_pattern`` layers, the
     final norm and the LM head.  Parameter names mirror the reference's
@@ -159,8 +210,8 @@ class Model(nn.Module):
         self.embed = L.Embed(cfg, **kw)
         self.final_norm = L.Norm(cfg.d_model, cfg.norm, **kw)
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({str(i): Layer(cfg, spec, **kw)
-                           for i, spec in enumerate(self.pattern)})
+            Block({str(i): Layer(cfg, spec, **kw)
+                   for i, spec in enumerate(self.pattern)})
             for _ in range(num_blocks(cfg))
         )
         # the vision projector, registered last so the other weights
@@ -262,7 +313,6 @@ def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor]):
     return tok
 
 
-@torch.no_grad()
 def forward(model: Model, batch: Dict[str, torch.Tensor], *,
             moe_state: Optional[Dict[str, torch.Tensor]] = None,
             return_moe: bool = False, impl: str = "auto",
@@ -281,17 +331,29 @@ def forward(model: Model, batch: Dict[str, torch.Tensor], *,
     over blocks (load (num_blocks, E), the rates (num_blocks,)); both
     are empty without MoE.  ``impl`` (an ``IMPLS`` choice) picks every
     kernel of the path: the attention kernels, the SSM scan's
-    ``chunk_scan`` and the MoE dispatch."""
-    _check_remat(remat_policy)
+    ``chunk_scan`` and the MoE dispatch.
+
+    It runs under autograd when gradients are enabled and a weight or
+    input requires one; ``remat_policy`` (:data:`REMAT_POLICIES`) then
+    checkpoints each block (:func:`remat_context`), which changes no
+    number of the forward or of the gradients."""
+    context_fn = remat_context(remat_policy)
     x = _embed_inputs(model, batch)
     auxes: Dict[str, list] = {}
-    for b, block in enumerate(model.blocks):
-        for i in range(len(model.pattern)):
-            load = moe_state[str(i)][b] if (
-                moe_state and str(i) in moe_state) else None
-            x, _, aux = block[str(i)](x, impl=impl, moe_load=load)
-            if aux is not None:
-                auxes.setdefault(str(i), []).append(aux)
+    for b in range(len(model.blocks)):
+        loads = {pos: s[b] for pos, s in (moe_state or {}).items()}
+        block = model.blocks[b]
+        if context_fn is None:
+            x, block_aux = block(x, loads, impl)
+        else:
+            # the recompute runs in the backward, maybe outside the
+            # caller's functional_call: it rebinds the weights it saw
+            x, block_aux = ckpt.checkpoint(
+                torch.func.functional_call, block,
+                dict(block.named_parameters()), (x, loads, impl),
+                use_reentrant=False, context_fn=context_fn)
+        for pos, aux in block_aux.items():
+            auxes.setdefault(pos, []).append(aux)
     x = model.final_norm(x)
     logits = model.embed.logits(x)
     if not return_moe:
@@ -303,6 +365,53 @@ def forward(model: Model, batch: Dict[str, torch.Tensor], *,
     new_state = {pos: moe_lib.update_load_ewma(moe_state[pos], a.load)
                  for pos, a in aux_out.items()}
     return logits, new_state, aux_out
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor],
+            moe_state: Optional[Dict[str, torch.Tensor]] = None, *,
+            remat_policy: str = "none", aux_coef: float = 0.01,
+            impl: str = "auto"):
+    """Next-token cross entropy in float32 (logsumexp minus the label's
+    logit, averaged), plus the switch aux loss times ``aux_coef`` under
+    the "topk" router: the reference's ``loss_fn``.  The labels are
+    ``batch["labels"]`` shifted by one (audio), the tokens after the P
+    patches (vision: logits ``[:, P:-1]`` against ``tokens[:, 1:]``), or
+    the tokens shifted by one.  Returns ``(loss, (new_moe_state,
+    metrics))``: ``metrics["ce"]`` and, with MoE layers, the drop and
+    steer rates and the load's standard deviation (``moe_drop_rate``,
+    ``moe_steer_rate``, ``moe_load_cv``) averaged over positions and
+    blocks, and ``aux_loss`` under "topk"."""
+    cfg = model.cfg
+    logits, new_state, aux = forward(model, batch, moe_state=moe_state,
+                                     return_moe=True, impl=impl,
+                                     remat_policy=remat_policy)
+    if cfg.frontend == "audio_frames":
+        shift_logits, labels = logits[:, :-1], batch["labels"][:, 1:]
+    elif cfg.frontend == "vlm_patches":
+        P = batch["patches"].shape[1]
+        shift_logits, labels = logits[:, P:-1], batch["tokens"][:, 1:]
+    else:
+        shift_logits, labels = logits[:, :-1], batch["tokens"][:, 1:]
+    lg = shift_logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(-1, labels.long()[..., None])[..., 0]
+    ce = (lse - picked).mean()
+    metrics = {"ce": ce}
+    loss = ce
+    if aux:
+        def avg(values):
+            return torch.stack(list(values)).mean()
+
+        metrics.update(
+            moe_drop_rate=avg(a.drop_rate.mean() for a in aux.values()),
+            moe_steer_rate=avg(a.steer_rate.mean() for a in aux.values()),
+            moe_load_cv=avg(a.load.std(dim=-1, unbiased=False).mean()
+                            for a in aux.values()))
+        if cfg.moe is not None and cfg.moe.router == "topk":
+            aux_l = avg(a.aux_loss.mean() for a in aux.values())
+            loss = loss + aux_coef * aux_l
+            metrics["aux_loss"] = aux_l
+    return loss, (new_state, metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -349,8 +458,10 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
     h in float32 and its conv tail rounded to ``cache_dtype``.  A prompt
     shorter than d_conv - 1 raises ``ValueError`` for a Mamba model.
     MoE layers see balanced telemetry, as in the reference, whose
-    prefill passes ``init_moe_state`` at every call."""
-    _check_remat(remat_policy)
+    prefill passes ``init_moe_state`` at every call.  ``remat_policy``
+    changes nothing without gradients, as the reference's checkpoint
+    changes nothing outside a differentiated function."""
+    remat_context(remat_policy)  # the name is checked
     cfg = model.cfg
     x = _embed_inputs(model, batch)
     B, S = x.shape[:2]

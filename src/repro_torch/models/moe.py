@@ -27,7 +27,7 @@ from torch import nn
 from repro_torch.config import ArchConfig
 from repro_torch.core import xla
 from repro_torch.kernels.midas_route import ops as route_ops
-from repro_torch.models.layers import _gelu, _param
+from repro_torch.models.layers import _gelu, _param, einsum
 
 
 class MoEAux(NamedTuple):
@@ -114,7 +114,7 @@ class MoE(nn.Module):
         E, k = mo.num_experts, mo.experts_per_token
         T = B * S
         xt = x.reshape(T, d)
-        gate_logits = torch.einsum("td,de->te", xt, self.router).float()
+        gate_logits = einsum("td,de->te", xt, self.router).float()
         experts, weights, steered = dispatch(cfg, gate_logits, load_ewma,
                                              impl=impl)
 
@@ -133,9 +133,10 @@ class MoE(nn.Module):
 
         # ---- expert FFN (gated)
         act = F.silu if cfg.act == "silu" else _gelu
-        g = torch.bmm(buf, self.w_gate)
-        u = torch.bmm(buf, self.w_up)
-        out = torch.bmm(act(g) * u, self.w_down).view(E * C, d)
+        g = einsum("ecd,edf->ecf", buf, self.w_gate)
+        u = einsum("ecd,edf->ecf", buf, self.w_up)
+        out = einsum("ecf,efd->ecd", act(g) * u, self.w_down).reshape(
+            E * C, d)
 
         # ---- combine, summed over the k slots in float32
         gathered = out[row.clamp(max=E * C - 1)]

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import ArchConfig
-from repro_torch.models.layers import _param
+from repro_torch.models.layers import _param, einsum
 
 
 def sinusoidal_positions(S: int, d: int, device=None) -> torch.Tensor:
@@ -69,5 +69,5 @@ def vlm_frontend(p: Frontend, cfg: ArchConfig, patches: torch.Tensor,
                  token_embeds: torch.Tensor) -> torch.Tensor:
     """patches: (B, P, d_model) precomputed patch embeddings, projected
     and prepended to the text token embeddings."""
-    proj = torch.einsum("bpd,de->bpe", patches, p.proj)
+    proj = einsum("bpd,de->bpe", patches, p.proj)
     return torch.cat([proj.to(token_embeds.dtype), token_embeds], dim=1)

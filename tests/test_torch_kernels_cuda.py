@@ -499,6 +499,122 @@ def test_cuda_flash_attention_in_a_cuda_graph():
             assert torch.equal(out, eager), shape
 
 
+# (B, S, H, KV, D, window, softcap, dtype): SmolLM-360M's training shape
+# in both dtypes, Qwen3-MoE's heads (64 over 4, D 128), MusicGen's G = 1,
+# gemma2's window and softcap, a ragged S with a padded D, and a ragged S
+# in bfloat16 at D 128 with one KV head
+FA_BWD_SHAPES = [
+    (8, 512, 15, 5, 64, 0, 0.0, "bfloat16"),
+    (8, 512, 15, 5, 64, 0, 0.0, "float32"),
+    (1, 512, 64, 4, 128, 0, 0.0, "float32"),
+    (1, 512, 32, 32, 64, 0, 0.0, "bfloat16"),
+    (2, 256, 8, 4, 256, 128, 50.0, "float32"),
+    (2, 100, 6, 2, 20, 24, 20.0, "float32"),
+    (1, 77, 4, 1, 128, 0, 0.0, "bfloat16"),
+]
+
+
+def bwd_tol(dtype):
+    """The backward against ``ref.mha_backward``: |diff| <= tol (1 +
+    |want|) scaled by the largest |want|.  float32: 1e-4 (the forward's
+    3xTF32 output and its ex2.approx logsumexp enter D = dO . o and p);
+    bfloat16: 2e-2, the forward's tolerance (the gradients are rounded
+    to bfloat16, and D reads the bfloat16 output)."""
+    return 2e-2 if dtype == "bfloat16" else 1e-4
+
+
+def _assert_grads_close(got, want, dtype, what):
+    tol = bwd_tol(dtype)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        g, w = g.float(), w.float()
+        assert bool(torch.isfinite(g).all()), (what, name)
+        scale = w.abs().max().item()
+        err = (g - w).abs()
+        bad = err > tol * (scale + w.abs())
+        assert not bool(bad.any()), (
+            f"{what} {name}: max |diff| {err.max().item():.3g} at scale "
+            f"{scale:.3g}")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_backward_matches_plain_version():
+    """The backward kernels against the autograd gradient of ``ref.mha``
+    at each case, causal and not, one launch a call, in q's dtype, and
+    bitwise equal on a repeated call (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    before = kernel.flash_attention_backward.launches
+    calls = 0
+    for shape in FA_BWD_SHAPES:
+        B, S, H, KV, D, window, cap, dtype = shape
+        rng = np.random.default_rng(S + H + D)
+        q, k, v = (_randn(rng, (B, S, n, D), dtype) for n in (H, KV, KV))
+        dout = _randn(rng, (B, S, H, D), dtype)
+        for causal in (True, False):
+            kw = dict(causal=causal, window=window, softcap=cap)
+            out, lse = kernel._forward(q, k, v, causal, window, cap, True)
+            got = kernel.flash_attention_backward(q, k, v, out, dout, lse,
+                                                  **kw)
+            want = fa_ref.mha_backward(q, k, v, dout, **kw)
+            torch.cuda.synchronize()
+            _assert_grads_close(got, want, dtype, (shape, causal))
+            again = kernel.flash_attention_backward(q, k, v, out, dout,
+                                                    lse, **kw)
+            calls += 2
+            for a, b in zip(got, again):
+                assert torch.equal(a, b), (shape, causal)
+    assert kernel.flash_attention_backward.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_under_autograd():
+    """With inputs that require a gradient the kernel's result carries
+    the backward kernels: the forward's output is the no-grad call's bit
+    for bit, and ``backward`` gives ``flash_attention_backward``'s
+    gradients, one forward and one backward launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel, ops
+
+    shape = (2, 200, 15, 5, 64, 0, 0.0, "bfloat16")
+    q, k, v = _fa_inputs(shape, 3)
+    dout = _fa_inputs(shape, 4)[0]
+    plain = kernel.flash_attention(q, k, v)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    f0 = kernel.flash_attention.launches
+    b0 = kernel.flash_attention_backward.launches
+    out = ops.flash_attention(qq, kk, vv)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), plain)
+    out.backward(dout)
+    assert kernel.flash_attention.launches == f0 + 1
+    assert kernel.flash_attention_backward.launches == b0 + 1
+    _, lse = kernel._forward(q, k, v, True, 0, 0.0, True)
+    want = kernel.flash_attention_backward(q, k, v, plain, dout, lse)
+    for g, w in zip((qq.grad, kk.grad, vv.grad), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_backward_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    q, k, v = _fa_inputs((1, 16, 4, 2, 64, 0, 0.0, "float32"), 0)
+    out, lse = kernel._forward(q, k, v, True, 0, 0.0, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_attention_backward(q.cpu(), k.cpu(), v.cpu(),
+                                        out.cpu(), out.cpu(), lse.cpu())
+    with pytest.raises(ValueError, match="lse"):
+        kernel.flash_attention_backward(q, k, v, out, out, lse.double())
+    with pytest.raises(ValueError, match="dout"):
+        kernel.flash_attention_backward(q, k, v, out, out.bfloat16(), lse)
+
+
 @pytest.mark.requires_cuda
 def test_cuda_decode_attention_matches_plain_version():
     if not torch.cuda.is_available():

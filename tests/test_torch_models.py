@@ -327,10 +327,15 @@ def test_mamba_cache_from_numpy_checks_shapes(pair):
 
 
 def test_remat_policy_raises(pair):
+    """Every reference policy is ported (tests/test_torch_train.py holds
+    each bit for bit to "none"); a name that is none of them raises."""
     _, _, cfg, model = pair("smollm-360m")
     toks = torch.as_tensor(_tokens(cfg, 1, 4))
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        models.forward(model, {"tokens": toks}, remat_policy="full")
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        models.prefill(model, {"tokens": toks},
-                       remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="remat_policy"):
+        models.forward(model, {"tokens": toks}, remat_policy="everything")
+    with pytest.raises(ValueError, match="remat_policy"):
+        models.prefill(model, {"tokens": toks}, remat_policy="dots")
+    want = models.forward(model, {"tokens": toks})
+    for policy in ("full", "dots_saveable"):
+        assert torch.equal(models.forward(model, {"tokens": toks},
+                                          remat_policy=policy), want)
