@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the design steps of ``flash_attention``, ``decode_attention``,
-``chunk_scan`` and the MoE dispatch on the card at the serving shapes.
+``chunk_scan`` and the MoE dispatch on the card at the serving shapes,
+and the flash-attention backward at the training shape.
 
     python3 benchmarks_torch/kernel_steps.py [--parent DIR]
-        [--only flash_attention decode_attention chunk_scan dispatch]
+        [--only flash_attention flash_attention_backward
+                decode_attention chunk_scan dispatch]
 
 Each variant is first checked against the plain version, then timed as
 ``chip_smoke.py`` phase 2 times a kernel: calls over input sets that
@@ -28,6 +30,11 @@ Variants:
   run, ``Plan``), and the plan with 4-byte loads (inputs offset by one
   element, so the 16-byte path is not taken); and the plan alone at a
   65536-row cache of Qwen3-MoE's widths;
+- ``flash_attention_backward`` at SmolLM-360M's training shape (B 8,
+  S 512, 15 heads over 5, head_dim 64) in bfloat16 and float32, as
+  ``chip_smoke.py`` phase 16 times it (one input set, hot), checked
+  against ``ref.mha_backward`` first; with the library's tensor-core
+  and atomic instructions from ``cuobjdump --dump-sass``;
 - ``chunk_scan`` at falcon-mamba-7b's serving chunk: 16-byte ``cp.async``
   copies, and 4-byte ones (inputs offset by one element);
 - the MoE dispatch at qwen3-moe's decode token and prompt (T = 1 and
@@ -78,8 +85,10 @@ DA_LONG = (1, 65536, 64, 4, 128, 0, 0.0, "float32")
 DA_TIMED = [cs.DA_SERVE, cs.DA_MOE, DA_LONG]
 N_SETS = 40
 PARENT = "the other checkout's kernel"  # the --parent rows' label
-KERNELS = ("flash_attention", "decode_attention", "chunk_scan", "dispatch")
+KERNELS = ("flash_attention", "flash_attention_backward",
+           "decode_attention", "chunk_scan", "dispatch")
 FA_TIMED = [cs.FA_SERVE, cs.FA_MOE]
+FA_BWD_TIMED = [cs.FA_BWD_TRAIN, cs.FA_BWD_SHAPES[1]]  # bf16, float32
 FA_COLD_BYTES = 64e6  # input sets of a flash_attention timing, in all
 # flash_attention's design switches, each set otherwise in a copy
 FA_SWITCHES = {
@@ -377,6 +386,34 @@ def fa_turn(torch, fk, fa_ref, who, patched):
     return rows
 
 
+def time_fa_bwd(torch, kernel, ref, shape, label):
+    """``kernel``'s flash_attention_backward at ``shape``, one input set
+    (hot, as ``chip_smoke.py`` phase 16 times it), checked against
+    ``ref.mha_backward`` first."""
+    B, S, H, KV, D, window, cap, dtype = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(S + H + D)
+    q, k, v, dout = (torch.randn((B, S, n, D), generator=g, device="cuda",
+                                 dtype=dt) for n in (H, KV, KV, H))
+    kw = dict(causal=True, window=window, softcap=cap)
+    out, lse = kernel._forward(q, k, v, True, window, cap, True)
+    got = kernel.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+    want = ref.mha_backward(q, k, v, dout, **kw)
+    tol, err = cs.bwd_tol(dtype), 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        cs.check(bool((diff <= tol * (b.abs().max() + b.abs())).all()),
+                 f"{label} {shape}: differs by {diff.max().item():.3g}")
+        err = max(err, diff.max().item())
+
+    def fn():
+        return kernel.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+    return dict(kernel="flash_attention_backward", shape=shape,
+                variant=label, ms=cs.device_ms(torch, [fn], cs.N_BWD),
+                host_ms=cs.host_ms(torch, fn, cs.N_BWD), max_abs_err=err)
+
+
 def time_cs(torch, kernel, ref, label, misalign=False):
     shape = cs.CS_SERVE
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -505,16 +542,29 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     subs = {"flash_attention": "flash_attention",
+            "flash_attention_backward": "flash_attention",
             "decode_attention": "decode_attention", "chunk_scan": "ssm_scan",
             "dispatch": "midas_route"}
-    mods = {"this": {"flash_attention": fa, "decode_attention": da,
-                     "chunk_scan": sc, "dispatch": mr}}
+    mods = {"this": {"flash_attention": fa, "flash_attention_backward": fa,
+                     "decode_attention": da, "chunk_scan": sc,
+                     "dispatch": mr}}
     if args.parent is not None:
         mods["parent"] = {name: load_parent(args.parent, subs[name])
                           for name in args.only}
 
     def source(mod, name):
-        return mod.DISPATCH_SOURCE if name == "dispatch" else mod.SOURCE
+        if name == "dispatch":
+            return mod.DISPATCH_SOURCE
+        if name == "flash_attention_backward":
+            return mod.BWD_SOURCE
+        return mod.SOURCE
+
+    def loader(mod, name):
+        if name == "dispatch":
+            return mod._dispatch_lib
+        if name == "flash_attention_backward":
+            return mod._bwd_lib
+        return mod._lib
 
     specs = {(who, name): (source(mods[who][name], name),
                            mods[who][name].FLAGS)
@@ -523,12 +573,15 @@ def main() -> int:
     for (who, name), (source, flags) in specs.items():
         print(f"ptxas {who} {name}: {ptxas_summary(built[str(source)][1])}")
         print(f"sass {who} {name}: {sass_counts(source, flags)}")
+        if name == "flash_attention_backward":
+            mma, atomics, floats = cs.sass_ops(source, flags)
+            print(f"sass {who} {name}: {mma} tensor-core instructions, "
+                  f"{atomics} RED/ATOM ({floats} of a float type)")
     order = (["parent", "this", "this", "parent"] if "parent" in mods
              else ["this", "this"])
     rows = []
     for name in args.only:  # built above; the copies in parallel
-        mod = mods["this"][name]
-        (mod._dispatch_lib if name == "dispatch" else mod._lib)()
+        loader(mods["this"][name], name)()
     jobs = {key: (da if key[0] == "decode_attention" else sc, [edit])
             for key, edit in PATCHES.items() if key[0] in args.only}
     if "flash_attention" in args.only:
@@ -566,6 +619,15 @@ def main() -> int:
                             rows.append(dict(time_da(
                                 torch, da, da_ref, shape,
                                 f"this, patched: {label}"), turn=turn))
+    for turn, who in enumerate(order):
+        if "flash_attention_backward" not in args.only:
+            continue
+        label = f"{who}: " + ("this checkout's kernel" if who == "this"
+                              else PARENT)
+        for shape in FA_BWD_TIMED:
+            rows.append(dict(time_fa_bwd(
+                torch, mods[who]["flash_attention_backward"], fa_ref, shape,
+                label), turn=turn))
     for turn, who in enumerate(order):
         if "dispatch" in args.only:
             rows += [dict(r, turn=turn) for r in dispatch_turn(

@@ -180,9 +180,12 @@ Phases:
    kernels (``flash_attention_bwd.cu``) against ``ref.mha_backward`` at
    SmolLM-360M's training shape (8, 512, 15, 5, 64) in bfloat16 and
    float32, Qwen3-MoE's heads, MusicGen's G = 1, gemma2's window and
-   softcap and a ragged S, bitwise on a repeat, timed (CUDA-graph
-   replay) beside the plain version and SDPA, each forward and
-   backward; then SmolLM-360M at
+   softcap and a ragged S, bitwise on a repeat; their library's SASS
+   (tensor-core instructions, and no RED/ATOM); timed (CUDA-graph
+   replay) beside SDPA's backward alone and the plain version (its
+   forward and backward), the port's forward and backward pair beside
+   SDPA's, and the forward alone at the training shape (with its row
+   logsumexp) beside SDPA's forward; then SmolLM-360M at
    full width and depth trained 20 steps at batch 8 x seq 512 through
    ``repro_torch.launch.train --full-config`` at ``RunConfig``'s
    defaults (bfloat16 activations, float32 masters, AdamW,
@@ -213,6 +216,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -359,14 +363,17 @@ def host_ms(torch, fn, n=N_TIMED) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(torch, fns, n) -> float:
+def device_ms(torch, fns, n, stream=None) -> float:
     """Per-call device time: n calls captured in one CUDA graph and
     replayed between CUDA events, so no host-side cost is counted.
     Call j runs ``fns[j % len(fns)]``: several input sets whose total
     exceeds the 50 MB L2 make every call read its inputs cold.  The
-    calls run once in the stream that captures them, so what a wrapper
-    keeps per stream is made before the capture."""
-    side = torch.cuda.Stream()
+    calls run once in the stream that captures them (``stream``, else a
+    new one), so what a wrapper keeps per stream is made before the
+    capture; autograd runs a backward on its forward's stream, so a
+    forward made outside the graph for a backward inside it is made on
+    ``stream``."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for fn in fns:
@@ -799,15 +806,18 @@ def kept_rows(pos, S, window) -> int:
     return max(hi - lo + 1, 0)
 
 
-def fa_bound(B, S, H, KV, D, window, itemsize, rate=None):
+def fa_bound(B, S, H, KV, D, window, itemsize, rate=None, lse=False):
     """(bound ms, "bytes" or "operations") of causal attention: q, k, v
-    read once and the output written once against 4 D operations per
-    kept pair and head on the tensor cores the kernel uses (float32 as
-    3xTF32: the TF32 rate over 3), or at ``rate`` FLOP/s (the float32
+    read once and the output (with ``lse`` also the float32 row
+    logsumexp the backward reads) written once against 4 D operations
+    per kept pair and head on the tensor cores the kernel uses (float32
+    as 3xTF32: the TF32 rate over 3), or at ``rate`` FLOP/s (the float32
     CUDA cores' of the CUDA-core kernel, kept for comparison)."""
     if rate is None:
         rate = (BF16_FLOP_PER_S if itemsize == 2 else TF32_FLOP_PER_S / 3)
     byts = (2 * B * S * H * D + 2 * B * S * KV * D) * itemsize
+    if lse:
+        byts += 4 * B * H * S
     flops = 4 * D * kept_pairs(S, window) * B * H
     t_b, t_f = byts / HBM_BYTES_PER_S, flops / rate
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -2989,11 +2999,39 @@ def fa_bwd_bound(B, S, H, KV, D, window, itemsize):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def sass_ops(source, flags):
+    """(tensor-core MMA instructions, RED/ATOM instructions of any type,
+    those of a float type) in the SASS of the library built from
+    ``source`` (``cuobjdump --dump-sass``)."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library_path(source, flags)
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "--dump-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    atomics = re.findall(r"\b(?:RED|ATOM|ATOMG|ATOMS)\.(\S*)", out)
+    floats = [a for a in atomics if re.search(r"F(?:16|32|64)|BF16", a)]
+    return (len(re.findall(r"\bH(?:G)?MMA\.", out)), len(atomics),
+            len(floats))
+
+
 def phase_train_kernel(torch, fa_kernel, fa_ref):
     """The backward kernels against ``ref.mha_backward`` at every case,
-    causal, bitwise on a repeat; times at SmolLM's training shape."""
+    causal, bitwise on a repeat; its SASS (tensor-core instructions, no
+    atomics); times at SmolLM's training shape: the backward beside
+    SDPA's backward alone, the port's forward and backward pair beside
+    SDPA's, and the forward alone (with its row logsumexp, as training
+    runs it) beside SDPA's forward."""
     import torch.nn.functional as F
 
+    mma, atomics, float_atomics = sass_ops(fa_kernel.BWD_SOURCE,
+                                           fa_kernel.FLAGS)
+    check(mma > 0 and atomics == 0,
+          f"flash_attention_backward's SASS: {mma} tensor-core "
+          f"instructions, {atomics} atomics")
+    say(f"[16] flash_attention_backward's SASS: {mma} HMMA instructions, "
+        f"{atomics} RED/ATOM instructions ({float_atomics} of a float "
+        f"type)")
     max_err, row = 0.0, None
     for shape in FA_BWD_SHAPES:
         B, S, H, KV, D, window, cap, dtype = shape
@@ -3042,20 +3080,56 @@ def phase_train_kernel(torch, fa_kernel, fa_ref):
             out_t = F.scaled_dot_product_attention(
                 qs, ks, vs, is_causal=True, enable_gqa=True)
             return torch.autograd.grad(out_t, (qs, ks, vs), d_t)
+
+        # SDPA's backward alone: its forward made once, outside the
+        # graph, on the stream the backward is captured on
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out_s = F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True)
+
+        def lb_fn():
+            return torch.autograd.grad(out_s, (qs, ks, vs), d_t,
+                                       retain_graph=True)
+
+        qf, kf, vf = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+        def pair_fn():
+            # the port's forward (with its logsumexp) and backward
+            o = fa_kernel.FlashAttention.apply(qf, kf, vf, True, window, cap)
+            return torch.autograd.grad(o, (qf, kf, vf), dout)
+
         bound, by = fa_bwd_bound(B, S, H, KV, D, window, q.element_size())
-        # the plain backward (autograd of ref.mha) and SDPA's replay
-        # from a CUDA graph too, each with its forward
+        # the plain backward (autograd of ref.mha, with its forward) from
+        # a CUDA graph too
         row = dict(shape=shape, ms=device_ms(torch, [k_fn], N_BWD),
                    host_ms=host_ms(torch, k_fn, N_BWD),
                    plain_ms=device_ms(torch, [p_fn], N_BWD),
-                   library_ms=device_ms(torch, [l_fn], N_BWD),
+                   library_ms=device_ms(torch, [lb_fn], N_BWD, stream=side),
+                   pair_ms=device_ms(torch, [pair_fn], N_BWD),
+                   library_pair_ms=device_ms(torch, [l_fn], N_BWD),
                    bound_ms=bound, bound_by=by)
         say(f"[16] flash_attention_backward {shape}: device "
             f"{row['ms'] * 1e3:.1f} us (called {row['host_ms'] * 1e3:.1f} "
-            f"us), plain forward + backward {row['plain_ms'] * 1e3:.1f} us,"
-            f" sdpa's forward + backward {row['library_ms'] * 1e3:.1f} us, "
-            f"bound "
-            f"{bound * 1e3:.3f} us ({by})")
+            f"us), sdpa's backward alone {row['library_ms'] * 1e3:.1f} us, "
+            f"plain forward + backward {row['plain_ms'] * 1e3:.1f} us, "
+            f"bound {bound * 1e3:.3f} us ({by}); forward + backward: the "
+            f"port's {row['pair_ms'] * 1e3:.1f} us, sdpa's "
+            f"{row['library_pair_ms'] * 1e3:.1f} us")
+        # the forward alone at the training shape, as training runs it
+        f_fn = lambda: fa_kernel._forward(  # noqa: E731
+            q, k, v, True, window, cap, True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fl_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        f_bound, f_by = fa_bound(B, S, H, KV, D, window, q.element_size(),
+                                 lse=True)
+        f_ms = device_ms(torch, [f_fn], N_BWD)
+        fl_ms = device_ms(torch, [fl_fn], N_BWD)
+        say(f"[16] flash_attention forward {shape} with its row "
+            f"logsumexp: device {f_ms * 1e3:.3f} us, sdpa's forward "
+            f"{fl_ms * 1e3:.3f} us, bound {f_bound * 1e3:.3f} us ({f_by})")
     return row, max_err
 
 

@@ -175,10 +175,10 @@ def flash_attention_backward(
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
     output ``out``, the output's gradient ``dout`` (both (B, S, H, D) in
     q's dtype) and the forward's row logsumexp ``lse`` (B, H, S) float32
-    in log2 units: one call of the backward kernels (``bwd_delta``,
-    ``bwd_dkdv``, ``bwd_dq`` in order; no atomics, so a repeated call is
-    bitwise equal).  The gradients are in q's dtype, dk and dv summed
-    over each KV head's query heads."""
+    in log2 units: one call of the backward kernels (``bwd_delta``, then
+    ``bwd_main``, whose blocks take dK and dV or dQ; no atomics, so a
+    repeated call is bitwise equal).  The gradients are in q's dtype, dk
+    and dv summed over each KV head's query heads."""
     _check(q, k, v)
     B, S, H, D = q.shape
     KV = k.shape[2]

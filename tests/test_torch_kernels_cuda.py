@@ -25,6 +25,11 @@ span, rows at other positions, a window narrower than a span, a
 65536-row cache (spans of many tiles), nothing kept (pos -1), other
 spans than the plan's, launches on two streams at once and replayed
 from a CUDA graph, and bitwise equal on a repeated call.
+``flash_attention_backward`` must agree with the autograd gradient of
+the plain attention (2e-2 in bfloat16, 1e-4 in float32, of the largest
+gradient), causal and not, be bitwise equal on a repeated call and
+replayed from a CUDA graph, and carry ``flash_attention``'s gradient
+under autograd.
 ``chunk_scan`` must agree within 1e-4 (relative and absolute, the JAX
 suite's tolerance for the Pallas chunk kernel) on that suite's shapes,
 a ragged d_inner, bfloat16 inputs, d_state 3 and 64, chunks longer
@@ -567,6 +572,44 @@ def test_cuda_flash_attention_backward_matches_plain_version():
             for a, b in zip(got, again):
                 assert torch.equal(a, b), (shape, causal)
     assert kernel.flash_attention_backward.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_backward_in_a_cuda_graph():
+    """A backward call captured in a warmed CUDA graph replays the eager
+    call's gradients bit for bit: at the training shape in both dtypes
+    and at the ragged, windowed, softcapped case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.flash_attention import kernel
+
+    for shape in (FA_BWD_SHAPES[0], FA_BWD_SHAPES[1], FA_BWD_SHAPES[5]):
+        B, S, H, KV, D, window, cap, dtype = shape
+        rng = np.random.default_rng(S + H + D)
+        q, k, v = (_randn(rng, (B, S, n, D), dtype) for n in (H, KV, KV))
+        dout = _randn(rng, (B, S, H, D), dtype)
+        kw = dict(causal=True, window=window, softcap=cap)
+        out, lse = kernel._forward(q, k, v, True, window, cap, True)
+        eager = kernel.flash_attention_backward(q, k, v, out, dout, lse,
+                                                **kw)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel.flash_attention_backward(q, k, v, out, dout, lse, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernel.flash_attention_backward.launches
+        with torch.cuda.graph(graph, stream=side):
+            got = kernel.flash_attention_backward(q, k, v, out, dout, lse,
+                                                  **kw)
+        assert kernel.flash_attention_backward.launches == before + 1
+        for _ in range(3):
+            for g in got:
+                g.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            for a, b in zip(got, eager):
+                assert torch.equal(a, b), shape
 
 
 @pytest.mark.requires_cuda
