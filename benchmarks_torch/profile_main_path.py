@@ -3,21 +3,27 @@
 
 Run from the repository root:
 
-    python3 benchmarks_torch/profile_main_path.py [--ticks 50]
+    python3 benchmarks_torch/profile_main_path.py [--ticks 50] \
+        [--policy {midas,power_of_d,chbl}]
 
 It builds ``chip_smoke.py``'s full-width main path (m=64, N=10**6,
-V=64, R=512, ``bursty``, seed 0), runs the first 400 ticks unprofiled,
-then times the next ``--ticks`` ticks twice from copies of the same
-state: once with CUDA events only, once under ``torch.profiler``.  It
-prints the set-up time of the hoisted horizon (feasible sets and every
-threefry draw), host time per tick, the device's busy and idle share
-over the window, kernel launches per tick, the top device kernels and
-the top host ops, with the card's name and power limit.
+V=64, R=512, ``bursty``, seed 0, the lease-mode cache) under
+``--policy`` (midas with its warmup's targets, the baselines with phase
+3's fixed ones), runs the first 400 ticks unprofiled, then times the
+next ``--ticks`` ticks from copies of the same state: ``REPEATS``
+times with a host clock around a synchronised run, once under
+``torch.profiler``.  It prints the set-up time of the hoisted horizon
+(feasible sets and every threefry draw), host time per tick and ticks/s
+of each repeat, the device's busy and idle share over the profiled
+window, kernel launches per tick, the top device kernels and the top
+host ops, with the card's name and power limit, and last a JSON line
+of the same numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
 import sys
 import time
@@ -30,6 +36,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 from chip_smoke import FULL, R_FULL, SEED, T_FULL  # noqa: E402
 
 T_LEAD = 400
+REPEATS = 3  # host-clocked runs of the window (host time varies ~2x)
 
 
 def clone(tree):
@@ -47,6 +54,8 @@ def clone(tree):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=50)
+    ap.add_argument("--policy", choices=("midas", "power_of_d", "chbl"),
+                    default="midas")
     args = ap.parse_args()
 
     import torch
@@ -62,17 +71,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
-    print(f"[p] card: {card}; torch {torch.__version__}")
+    print(f"[p] card: {card}; torch {torch.__version__}; policy "
+          f"{args.policy}")
 
-    cfg = core.SimConfig(policy="midas", middleware=("cache",), **FULL)
+    cfg = core.SimConfig(policy=args.policy, middleware=("cache",),
+                         cache_mode="lease", **FULL)
     wl = core.make_workload("bursty", T=T_FULL, m=cfg.m, seed=SEED,
                             N=cfg.N, R=R_FULL, device="cuda")
-    targets = sim.warmup(cfg, device="cuda")
+    policy = core.policies.get(cfg.policy)
+    targets = (sim.warmup(cfg, device="cuda") if policy.adaptive
+               else (0.15, 5.0 * cfg.service_ms))
 
     # the hoisted horizon: feasible sets + all draws of 1200 ticks
     st = sim.init_state(cfg, *targets, device="cuda")
     ring = core.hashring.make_ring(cfg.m, cfg.V, device="cuda")
-    policy = core.policies.get(cfg.policy)
     for rep in range(2):  # the first pass pays one-time allocations
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -92,14 +104,18 @@ def main() -> int:
         return sim.run_ticks(cfg, state, *window, t0=lo)
 
     run(clone(st))  # warm the allocator at these shapes
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(clone(st))
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    print(f"[p] {args.ticks} ticks (incl. their horizon set-up): "
-          f"{plain_s * 1e3:.2f} ms, {plain_s / args.ticks * 1e3:.3f} "
-          f"ms/tick, {args.ticks / plain_s:.1f} ticks/s")
+    ms_tick = []
+    for rep in range(REPEATS):
+        state = clone(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        ms_tick.append(plain_s / args.ticks * 1e3)
+        print(f"[p] {args.ticks} ticks (incl. their horizon set-up), "
+              f"repeat {rep}: {plain_s * 1e3:.2f} ms, {ms_tick[-1]:.3f} "
+              f"ms/tick, {args.ticks / plain_s:.1f} ticks/s")
 
     state = clone(st)
     torch.cuda.synchronize()
@@ -139,11 +155,20 @@ def main() -> int:
     for e in ops[:15]:
         print(f"[p]   {e.self_cpu_time_total:9.1f} {e.count:6d} "
               f"{100 * e.self_cpu_time_total / host_us:5.1f}% {e.key}")
+    launches = {}
     for kname in ("route_tick", "route_select"):
         n = sum(c for name, c in counts.items() if kname in name)
         us = sum(u for name, u in by_name.items() if kname in name)
+        launches[kname] = n
         print(f"[p] {kname}: {n} launches, {us:.1f} us "
               f"({100 * us / busy_us:.1f}% of device busy time)")
+    print(json.dumps({
+        "policy": args.policy, "card": card, "ticks": args.ticks,
+        "kernels_per_tick": len(kernels) / args.ticks,
+        "ms_per_tick": ms_tick,
+        "ticks_per_s": [1e3 / t for t in ms_tick],
+        "profiled_ms_per_tick": wall_s / args.ticks * 1e3,
+        "idle": 1 - busy_us / wall_us, "launches": launches}))
     return 0
 
 

@@ -25,15 +25,18 @@ Phases:
    ``scaled_dot_product_attention`` for attention, ``torch.topk`` for
    the dispatch candidates; no PyTorch call computes ``route_select``,
    ``route_tick``, ``chunk_scan``, the fused dispatch or the steering);
-   ``route_tick`` (a tick's 8 waves of the midas policy in one launch)
-   bitwise against the engine's waves one at a time, at the engine's
-   shape, with repeated keys, live and expired pins, binding and free
-   budgets, ragged masks and a wrapping history ring, with one shared
-   view and with per-wave base views (fleet routing), timed in both;
-   ``route_tick`` and ``route_select`` (power_of_d, chbl, midas) on the
-   member-aware feasible sets of a membership fault (m = 64 with server
-   0 dead; m = 4 with three dead, every row repeating its live server),
-   bitwise;
+   ``route_tick`` (a tick's 8 waves of the midas, power_of_d or chbl
+   policy in one launch, the tick's steering dV included) bitwise
+   against the engine's waves one at a time (its views against the
+   views they routed on, its dV also against ``steering_dv_waves``),
+   at the engine's shape,
+   with repeated keys, live and expired pins, binding and free budgets,
+   ragged masks, a wrapping history ring and loads on chbl's cap, with
+   one shared view and with per-wave base views (fleet routing), timed
+   in both and in each mode; ``route_tick`` (each mode) and
+   ``route_select`` (power_of_d, chbl, midas) on the member-aware
+   feasible sets of a membership fault (m = 64 with server 0 dead; m = 4
+   with three dead, every row repeating its live server), bitwise;
    ``flash_attention`` also at Qwen3-MoE's prefill shape, with its bound
    on the tensor cores and the CUDA cores' beside it, and bitwise equal
    on a repeated call; both attention kernels also at phase 15's
@@ -48,15 +51,15 @@ Phases:
    policy, counting one ``route_tick`` launch a tick and no other,
    with its ticks/s and its kernels a tick (torch.profiler over 50
    ticks); then 400 ticks of ``power_of_d`` at the same constants,
-   counting one ``route_select`` launch a wave and equal bit for bit to
+   counting one ``route_tick`` launch a tick and equal bit for bit to
    its plain run;
 4. the midas run's first 300 ticks with the plain wave loop in place of
    the kernel, which must give the same timelines, dV and final state
    bit for bit;
 5. a small simulator run on the card against the same run on the CPU;
 10. (run right after phase 5) the evaluation plane at phase 3's
-   constants and grid, 60 ticks each: ``chbl`` (one ``route_select``
-   launch a wave, 800), and midas + cache under the ``no_margin``,
+   constants and grid, 60 ticks each: ``chbl`` (one ``route_tick``
+   launch a tick, 60), and midas + cache under the ``no_margin``,
    ``no_pin`` and ``no_bucket`` ablations, the ``aimd``,
    ``deadband_pid`` and ``static`` controllers and the oscillation
    guard (one ``route_tick`` launch a tick, 60 each), every one bit for
@@ -77,7 +80,7 @@ Phases:
    (the per-proxy counters summing to the aggregates); the Δ = 0
    contract (a gossip_ms = 0 fleet without fleet routing equals the
    shared cache bit for bit); 100 ticks of ``power_of_d`` under fleet
-   routing (exactly 800 ``route_select`` launches, bitwise its plain
+   routing (exactly 100 ``route_tick`` launches, bitwise its plain
    run); the card against the CPU at m = 8, T = 200 on CPU-realized
    grids of the E9 scenarios, ``multi_tenant``, ``adversarial`` and
    ``trace_replay``, over the nine (gossip, cache mode) cells of E9;
@@ -96,7 +99,7 @@ Phases:
    ticks; the per-proxy counters summing to the aggregates; ticks/s and
    kernels a tick (torch.profiler, ticks 150-200 inside the fault
    window and 250-300 after it); 100 ticks of ``power_of_d`` under the
-   same program (exactly 800 ``route_select`` launches, bitwise); zero
+   same program (exactly 100 ``route_tick`` launches, bitwise); zero
    cost when off (``faults=()`` and a benign event equal ``None`` bit
    for bit over 100 ticks) and ``proxy_join`` bitwise its plain run;
    the card against the CPU over E12's six fault blocks, each under one
@@ -109,8 +112,8 @@ Phases:
    ``round_robin`` × the ``hysteresis`` and ``static`` controllers ×
    the first 50 ticks of phase 3's ``bursty`` grid and a ``storm``
    grid realized on the card × seeds 0 and 1, with phase 3's targets,
-   under ``metrics="full"`` and then ``"summary"``: exactly 400
-   ``route_tick`` and 3200 ``route_select`` launches a mode and no other
+   under ``metrics="full"`` and then ``"summary"``: exactly 800
+   ``route_tick`` launches a mode (midas and power_of_d) and no other
    kernel, ticks/s by policy (from the sweep's ``sweep/execute`` spans),
    kernels a tick and peak device memory of each mode; every summary row
    bit for bit ``summarize`` of its full row; midas × hysteresis ×
@@ -232,7 +235,9 @@ PARITY_TICKS = 300  # phase 4 compares the first quarter, for time
 POD_TICKS = 400  # the power_of_d run of phase 3
 PROFILE_LEAD, PROFILE_TICKS = 400, 50  # phase 3's kernels-a-tick window
 REPLACES = "src/repro/kernels/midas_route/kernel.py:319"
-TICK_REPLACES = (f"{REPLACES} + src/repro/core/policies/midas.py:53")
+# route_tick: the kernel and the reference's wave scan around it
+# (midas.py:53 route_midas, power_of_d.py, bounded_load.py)
+TICK_REPLACES = f"{REPLACES} + src/repro/core/sim.py:537"
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 on the CUDA cores
 # H100 SXM dense tensor-core peaks: TF32, whose 3xTF32 split makes three
 # products of every float32 one, and bfloat16
@@ -455,12 +460,33 @@ TICK_CASES = [(1, 0.3, 40), (2, 0.3, 8), (3, 1.0, 40), (4, 1.0, 8),
               (5, 0.3, 40), (6, 1.0, 40)]
 
 
-def tick_case(torch, np, sim, seed, f_max, pool, m=None, member=None):
+TICK_POLICIES = ("midas", "power_of_d", "chbl")
+
+
+def on_the_cap(np, torch, L, idx=(0, 3)):
+    """``L`` with the servers ``idx`` moved onto chbl's cap: a fixed point
+    of L[i] <- load_cap(L), so a load equals the cap exactly."""
+    from repro_torch.core.policies.bounded_load import load_cap
+
+    L = np.array(L, np.float32)
+    idx = [i % L.size for i in idx]
+    for _ in range(200):
+        c = np.float32(load_cap(torch.as_tensor(L)).item())
+        if (L[idx] == c).all():
+            return L
+        L[idx] = c
+    raise PhaseError("no load vector on chbl's cap found")
+
+
+def tick_case(torch, np, sim, seed, f_max, pool, m=None, member=None,
+              policy="midas", on_cap=False):
     """One tick's engine inputs on the card, made with numpy: a ragged
     mask, live and expired pins on the key pool, integer histories and a
     few hot servers (so rows are eligible and steer).  With ``member``
     ((m,) bool) the feasible sets are a membership fault's
-    (:func:`member_feasible`)."""
+    (:func:`member_feasible`).  ``policy``: midas (its state and knobs),
+    power_of_d or chbl (no state); ``on_cap`` puts two servers' loads on
+    chbl's cap."""
     from repro_torch.core import policies, prng
     from repro_torch.core.controllers.base import Knobs
     from repro_torch.core.policies.midas import MidasState
@@ -475,7 +501,8 @@ def tick_case(torch, np, sim, seed, f_max, pool, m=None, member=None):
     keypool = rng.choice(N, pool, replace=False)
     keys = t(keypool[rng.integers(0, pool, (G, Rg))]).long()
     mask = t(rng.random((G, Rg)) < 0.85)
-    policy = policies.get("midas")
+    name = policy
+    policy = policies.get(name)
     draws = policy.draws(prng.fold_in(prng.PRNGKey(seed, "cuda")[None],
                                       torch.arange(G, device="cuda")),
                          (Rg, d_max))
@@ -487,10 +514,12 @@ def tick_case(torch, np, sim, seed, f_max, pool, m=None, member=None):
     steer = rng.integers(0, 4, TICK_W).astype(np.float32)
     L_hat = np.round(rng.random(m) * 6, 1).astype(np.float32)
     L_hat[rng.integers(0, m, 4)] += 30.0
-    cfg = sim.SimConfig(policy="midas", **dict(FULL, m=m))
+    if on_cap:
+        L_hat = on_the_cap(np, torch, L_hat)
+    cfg = sim.SimConfig(policy=name, **dict(FULL, m=m))
     st = sim.init_state(cfg, device="cuda")._replace(
         L_hat=t(L_hat), p50_hat=t((rng.random(m) * 300).astype(np.float32)),
-        policy=MidasState(
+        policy=() if name != "midas" else MidasState(
             pin_server=t(pin_server), pin_expiry=t(pin_expiry),
             steer_hist=t(steer),
             elig_hist=t(steer + rng.integers(0, 3, TICK_W).astype(
@@ -501,7 +530,8 @@ def tick_case(torch, np, sim, seed, f_max, pool, m=None, member=None):
                   pin_ms=t(np.float32(300.0)), ttl_scale=t(np.float32(1.0)))
     consts = sim._Consts(torch.zeros((), device="cuda"),
                          torch.ones((), device="cuda"),
-                         torch.ones(m, device="cuda"))
+                         torch.ones(m, device="cuda"),
+                         fixed_d=t(np.int32(cfg.fixed_d)))
     return (cfg, policy, st, knobs, t(np.float32(now)), keys, mask,
             member_feasible(torch, np, keys, m, d_max, member), draws,
             consts)
@@ -545,126 +575,218 @@ def clone(tree):
     return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
 
 
-def tick_bytes(np, keys, W, changed) -> int:
-    """Bytes one tick must move, each read or written once: per row its
-    key (8 B), mask (1 B), and per slot feas (4), rank (1) and tie (4);
-    the pin entries (8 B) of the tick's distinct keys; L_hat and p50;
-    six knobs; the histories and hist_idx; then assign (4 B a row), the
-    views (4 B a server a wave), arrivals, two counts, hist_idx, the
-    history slots written and the pin entries the tick changed."""
+def tick_bytes(np, keys, W, changed, mode="midas") -> int:
+    """Bytes one tick must move in ``mode``, each read or written once:
+    per row its mask (1 B) and per slot feas (4), and L_hat; then assign
+    (4 B a row), the views (4 B a server a wave), arrivals and three
+    counts (steered, eligible, dV).  power_of_d and midas also read rank
+    (1) and tie (4) per slot and d; midas also each row's key (8 B), the
+    pin entries (8 B) of the tick's distinct keys, p50, five more knobs,
+    the histories and hist_idx, and writes hist_idx, the history slots
+    written and the pin entries the tick changed."""
     G, Rg, m, d_max, _ = TICK_SHAPE
     rows = G * Rg
-    distinct = int(np.unique(keys.cpu().numpy()).size)
-    reads = rows * (9 + 9 * d_max) + 8 * distinct + 8 * m + 24 + 8 * W + 4
-    writes = rows * 4 + G * m * 4 + 4 * m + 12 + 8 * min(G, W) + 8 * changed
+    reads = rows * (1 + 4 * d_max) + 4 * m
+    writes = rows * 4 + G * m * 4 + 4 * m + 12
+    if mode != "chbl":
+        reads += rows * 5 * d_max + 4
+    if mode == "midas":
+        distinct = int(np.unique(keys.cpu().numpy()).size)
+        reads += rows * 8 + 8 * distinct + 4 * m + 20 + 8 * W + 4
+        writes += 4 + 8 * min(G, W) + 8 * changed
     return reads + writes
 
 
 def tick_both(torch, sim, case, what, views=None):
     """One tick's waves through the plain loop and through route_tick,
     each from its own copy of the state; every output and the policy
-    state must be equal bit for bit.  Returns the kernel's TickRoute."""
+    state must be equal bit for bit, and route_tick's views (read off
+    the call: the engine's TickRoute leaves them out) the views the
+    plain loop routed each wave on, its dV also ``steering_dv_waves``
+    on those views.  Returns the kernel's TickRoute."""
+    from repro_torch.core.policies.base import (
+        RouteContext,
+        steering_dv_waves,
+    )
+    from repro_torch.kernels.midas_route import ops
+
     cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
-    out = {}
+    out, real, calls = {}, ops.route_tick, []
+
+    def record(*args, **kw):
+        calls.append(real(*args, **kw))
+        return calls[-1]
+
     for impl in ("ref", "cuda"):
         s = st._replace(policy=clone(st.policy))
-        out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys, mask,
-                                     feas, draws, impl, consts, views)
+        ops.route_tick = record
+        try:
+            out[impl] = sim._route_waves(cfg, policy, s, knobs, now, keys,
+                                         mask, feas, draws, impl, consts,
+                                         views)
+        finally:
+            ops.route_tick = real
     torch.cuda.synchronize()
+    check(len(calls) == 1, f"route_tick {what}: {len(calls)} calls, "
+          f"expected 1")
     (wps, wt), (gps, gt) = out["ref"], out["cuda"]
+    want_views = views
+    if views is None:  # the shared view plus the earlier waves' sends
+        sent, rows = torch.zeros_like(st.L), []
+        for g in range(keys.shape[0]):
+            rows.append(st.L_hat + sent)
+            sent = sent + sim._wave_counts(cfg.m, mask[g], wt.assign[g])
+        want_views = torch.stack(rows)
+    ctx = RouteContext(keys=keys, mask=mask, feas=feas, L_view=None,
+                       p50_view=None, knobs=None, now_ms=None, draws=None,
+                       m=cfg.m, fixed_d=None)
     pairs = [("assign", wt.assign, gt.assign),
+             ("views", want_views, calls[0][1]),
+             ("dV against steering_dv_waves",
+              steering_dv_waves(ctx, want_views, wt.assign), calls[0][5]),
              ("arrivals", wt.arrivals, gt.arrivals)]
     pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
               for f in ("steered", "eligible", "dV")]
-    pairs += [(f, getattr(wps, f), getattr(gps, f)) for f in wps._fields]
+    pairs += [(f, getattr(wps, f), getattr(gps, f))
+              for f in getattr(wps, "_fields", ())]
+    check(type(wps) is type(gps), f"route_tick {what}: the policy state "
+          f"differs from the waves one at a time")
     for name, w, g in pairs:
+        if w.dtype == torch.float32:  # the bits: +0.0 and -0.0 differ
+            w, g = w.view(torch.int32), g.view(torch.int32)
         check(w.dtype == g.dtype and torch.equal(w, g),
               f"route_tick {what}: {name} differs from the waves one at a "
               f"time")
     return gt
 
 
-def phase_route_tick(torch, np, sim, kernel):
-    """route_tick against the engine's waves one at a time, bitwise on
-    every output and on the policy state; then timed at the engine's
-    shape."""
-    steered = eligible = binds = 0
-    for seed, f_max, pool in TICK_CASES:
-        case = tick_case(torch, np, sim, seed, f_max, pool)
-        gt = tick_both(torch, sim, case, (seed, f_max, pool))
-        n_st, n_el = int(gt.stats.steered), int(gt.stats.eligible)
-        steered, eligible = steered + n_st, eligible + n_el
-        binds += int(n_st < n_el)
-    check(steered > 0 and binds > 0,
-          f"route_tick cases steered {steered} of {eligible}, with a "
-          f"binding budget in {binds}: they test too little")
-    say(f"[2] route_tick: {len(TICK_CASES)} ticks at (G, Rg, m, d_max, N) "
-        f"= {TICK_SHAPE}, W={TICK_W} (keys repeated within and across "
-        f"waves, live and expired pins, ragged masks, f_max 0.3 and 1) "
-        f"equal to the waves one at a time on assign, arrivals, steered, "
-        f"eligible, dV, pin tables, histories and hist_idx (max |diff| 0; "
-        f"{steered} of {eligible} eligible steered; the budget bound in "
-        f"{binds})")
-    fleet_steered = 0
-    for seed, f_max, pool in TICK_CASES:
-        case = tick_case(torch, np, sim, seed, f_max, pool)
-        gt = tick_both(torch, sim, case, f"fleet views {(seed, f_max, pool)}",
-                       fleet_views(torch, np, seed))
-        fleet_steered += int(gt.stats.steered)
-    check(fleet_steered > 0, "route_tick's fleet-view cases never steered")
-    say(f"[2] route_tick with per-wave base views (fleet routing: wave g "
-        f"on its proxy's view alone, no sends shared): the same "
-        f"{len(TICK_CASES)} ticks equal to the waves one at a time fed "
-        f"the same views on every output and the policy state "
-        f"({fleet_steered} steered)")
-
-    case = tick_case(torch, np, sim, *TICK_CASES[0])
+def tick_kernel_call(torch, kernel, case, mode, views=None):
+    """The route_tick call of ``case``'s tick in ``mode`` (the engine's
+    arguments; per-wave base views when given)."""
     cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
-    ms = st.policy
-    before = clone(ms)
-    args = (keys, mask, feas, draws.rank, draws.tie, st.L_hat, st.p50_hat,
-            *ms)
+    L = st.L_hat if views is None else views
+    if mode == "chbl":
+        return lambda: kernel.route_tick(keys, mask, feas, None, None, L,
+                                         mode="chbl")
+    if mode == "power_of_d":
+        return lambda: kernel.route_tick(keys, mask, feas, draws.rank,
+                                         draws.tie, L, d=consts.fixed_d,
+                                         mode="power_of_d")
+    args = (keys, mask, feas, draws.rank, draws.tie, L, st.p50_hat,
+            *st.policy)
     kw = dict(d=knobs.d, delta_l=knobs.delta_l, delta_t=knobs.delta_t,
               f_max=knobs.f_max, pin_ms=knobs.pin_ms, now_ms=now)
-    kernel.route_tick(*args, **kw)
-    torch.cuda.synchronize()
-    changed = int(((before.pin_server != ms.pin_server)
-                   | (before.pin_expiry != ms.pin_expiry)).sum())
-    bound = tick_bytes(np, keys, TICK_W, changed) / HBM_BYTES_PER_S * 1e3
+    return lambda: kernel.route_tick(*args, **kw)
 
-    def k_fn():
-        kernel.route_tick(*args, **kw)
 
-    def path(impl):
-        return lambda: sim._route_waves(cfg, policy, st, knobs, now, keys,
-                                        mask, feas, draws, impl, consts)
+def phase_route_tick(torch, np, sim, kernel):
+    """route_tick in each mode against the engine's waves one at a time,
+    bitwise on every output (the dV to the bit) and on midas's state;
+    then timed at the engine's shape in each mode.  Returns midas's row
+    (the kernels line times the main path's mode; the other modes' times
+    are printed here)."""
+    for mode in TICK_POLICIES:
+        steered = eligible = binds = moved = 0
+        for seed, f_max, pool in TICK_CASES:
+            case = tick_case(torch, np, sim, seed, f_max, pool, policy=mode)
+            gt = tick_both(torch, sim, case, (mode, seed, f_max, pool))
+            n_st, n_el = int(gt.stats.steered), int(gt.stats.eligible)
+            steered, eligible = steered + n_st, eligible + n_el
+            binds += int(n_st < n_el)
+            moved += float(gt.stats.dV) != 0.0
+        check(moved > 0, f"route_tick {mode}: no case moved a request")
+        check(mode != "midas" or (steered > 0 and binds > 0),
+              f"route_tick cases steered {steered} of {eligible}, with a "
+              f"binding budget in {binds}: they test too little")
+        check(mode != "chbl" or steered > 0, "chbl's cases never steered")
+        say(f"[2] route_tick {mode}: {len(TICK_CASES)} ticks at (G, Rg, m, "
+            f"d_max, N) = {TICK_SHAPE}"
+            + (f", W={TICK_W} (keys repeated within and across waves, live "
+               f"and expired pins, f_max 0.3 and 1)" if mode == "midas"
+               else "")
+            + f", ragged masks, equal to the waves one at a time on assign,"
+            f" the views routed on, arrivals, steered, eligible and dV "
+            f"(bits; the dV also against steering_dv_waves)"
+            + (", pin tables, histories and hist_idx" if mode == "midas"
+               else "")
+            + (f" ({steered} of {eligible} eligible steered" if mode == "midas"
+               else f" ({steered} steered")
+            + f"; {moved} ticks with a nonzero dV)")
+        fleet_moved = 0
+        for seed, f_max, pool in TICK_CASES:
+            case = tick_case(torch, np, sim, seed, f_max, pool, policy=mode)
+            gt = tick_both(torch, sim, case,
+                           f"{mode} fleet views {(seed, f_max, pool)}",
+                           fleet_views(torch, np, seed))
+            fleet_moved += float(gt.stats.dV) != 0.0
+        check(fleet_moved > 0, f"route_tick {mode}'s fleet-view cases never "
+              f"moved a request")
+        say(f"[2] route_tick {mode} with per-wave base views (fleet "
+            f"routing: wave g on its proxy's view alone, no sends shared): "
+            f"the same {len(TICK_CASES)} ticks equal to the waves one at a "
+            f"time fed the same views on every output")
+    # chbl with loads exactly on its cap: the first wave's view on one
+    # shared view, every wave's on per-wave views
+    case = tick_case(torch, np, sim, 7, 0.3, 40, policy="chbl", on_cap=True)
+    feas = case[7]
+    feas[0, ::2, 0] = 0  # primaries on the cap: kept (load <= cap)
+    feas[0, 1::4, 1] = 3  # a successor on the cap
+    gt = tick_both(torch, sim, case, "chbl, loads on the cap")
+    kept = gt.assign[0, ::2][case[6][0, ::2]]
+    check(bool((kept == 0).all()), "chbl: a primary on the cap was left")
+    G, _, m, _, _ = TICK_SHAPE
+    views = np.stack([on_the_cap(np, torch, v, (g, g + 3)) for g, v in
+                      enumerate(fleet_views(torch, np, 7).cpu().numpy())])
+    tick_both(torch, sim, case, "chbl, per-wave views on the cap",
+              torch.as_tensor(views).cuda())
+    say(f"[2] route_tick chbl with two servers' loads exactly on the cap "
+        f"(a fixed point of load_cap): equal to the waves one at a time on "
+        f"one view and on {G} per-wave views on the cap; the primaries on "
+        f"the cap kept their requests")
 
-    fleet_args = (*args[:5], fleet_views(torch, np, TICK_CASES[0][0]),
-                  *args[6:])
+    for mode in TICK_POLICIES:
+        case = tick_case(torch, np, sim, *TICK_CASES[0], policy=mode)
+        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+        before = clone(st.policy)
+        k_fn = tick_kernel_call(torch, kernel, case, mode)
+        k_fn()
+        torch.cuda.synchronize()
+        changed = 0 if mode != "midas" else int(
+            ((before.pin_server != st.policy.pin_server)
+             | (before.pin_expiry != st.policy.pin_expiry)).sum())
+        bound = (tick_bytes(np, keys, TICK_W, changed, mode)
+                 / HBM_BYTES_PER_S * 1e3)
 
-    def k_fleet():
-        kernel.route_tick(*fleet_args, **kw)
+        def path(impl, case=case):
+            cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = \
+                case
+            return lambda: sim._route_waves(cfg, policy, st, knobs, now,
+                                            keys, mask, feas, draws, impl,
+                                            consts)
 
-    row = dict(
-        name="route_tick", shape=TICK_SHAPE,
-        ms=device_ms(torch, [k_fn], N_GRAPH),
-        fleet_ms=device_ms(torch, [k_fleet], N_GRAPH),
-        plain_ms=device_ms(torch, [path("ref")], 10),
-        host_ms=host_ms(torch, k_fn),
-        tick_host_ms=host_ms(torch, path("cuda")),
-        plain_host_ms=host_ms(torch, path("ref"), 50),
-        bound_ms=bound, bound_by="bytes", library_ms=None, max_abs_err=0.0)
-    say(f"[2] route_tick midas (G, Rg, m, d_max, N) = {TICK_SHAPE}: device "
-        f"kernel {row['ms'] * 1e3:.3f} us, plain waves "
-        f"{row['plain_ms'] * 1e3:.3f} us, bound {bound * 1e3:.4f} us "
-        f"(bytes); called one at a time from Python: kernel "
-        f"{row['host_ms'] * 1e3:.2f} us, the engine's tick routing with "
-        f"it (kernel + dV) {row['tick_host_ms'] * 1e3:.2f} us, plain waves "
-        f"{row['plain_host_ms'] * 1e3:.2f} us")
-    say(f"[2] route_tick with per-wave base views at the same shape: device "
-        f"kernel {row['fleet_ms'] * 1e3:.3f} us (one shared view: "
-        f"{row['ms'] * 1e3:.3f} us)")
-    return row
+        k_fleet = tick_kernel_call(torch, kernel, case, mode,
+                                   fleet_views(torch, np, TICK_CASES[0][0]))
+        row = dict(
+            name="route_tick", mode=mode, shape=TICK_SHAPE,
+            ms=device_ms(torch, [k_fn], N_GRAPH),
+            fleet_ms=device_ms(torch, [k_fleet], N_GRAPH),
+            plain_ms=device_ms(torch, [path("ref")], 10),
+            host_ms=host_ms(torch, k_fn),
+            tick_host_ms=host_ms(torch, path("cuda")),
+            plain_host_ms=host_ms(torch, path("ref"), 50),
+            bound_ms=bound, bound_by="bytes", library_ms=None,
+            max_abs_err=0.0)
+        if mode == "midas":
+            midas_row = row
+        say(f"[2] route_tick {mode} (G, Rg, m, d_max, N) = {TICK_SHAPE}: "
+            f"device kernel {row['ms'] * 1e3:.3f} us, plain waves "
+            f"{row['plain_ms'] * 1e3:.3f} us, bound {bound * 1e3:.4f} us "
+            f"(bytes); called one at a time from Python: kernel "
+            f"{row['host_ms'] * 1e3:.2f} us, the engine's tick routing "
+            f"with it {row['tick_host_ms'] * 1e3:.2f} us, plain waves "
+            f"{row['plain_host_ms'] * 1e3:.2f} us; per-wave base views: "
+            f"device kernel {row['fleet_ms'] * 1e3:.3f} us")
+    return midas_row
 
 
 # ---------------------------------------------------------------------------
@@ -688,16 +810,22 @@ def phase_member_route(torch, np, sim, kernel, ref):
         member[list(dead)] = False
         live = torch.as_tensor(member).cuda()
         steered = repeated = 0
-        for seed, f_max, pool in TICK_CASES[:4]:
+        for (seed, f_max, pool), mode in ((c, p) for c in TICK_CASES[:4]
+                                          for p in TICK_POLICIES):
             case = tick_case(torch, np, sim, seed, f_max, pool, m=m,
-                             member=member)
+                             member=member, policy=mode)
             feas = case[7]
             check(bool(live[feas.long()].all()),
                   f"member-aware sets at m={m} hold a dead server")
-            repeated += int((feas[..., 1:] == feas[..., :1]).any(-1)
-                            .sum())
-            gt = tick_both(torch, sim, case, f"on member-aware sets (m={m}, "
-                           f"dead {dead}, seed {seed})")
+            if mode == "midas":
+                repeated += int((feas[..., 1:] == feas[..., :1]).any(-1)
+                                .sum())
+            gt = tick_both(torch, sim, case, f"{mode} on member-aware sets "
+                           f"(m={m}, dead {dead}, seed {seed})")
+            # (midas's pins here name any server, dead ones too)
+            check(mode == "midas"
+                  or bool(live[gt.assign[gt.assign >= 0].long()].all()),
+                  f"route_tick {mode} chose a dead server")
             steered += int(gt.stats.steered)
         if m - len(dead) < TICK_SHAPE[3]:
             check(repeated == TICK_SHAPE[0] * TICK_SHAPE[1] * 4,
@@ -723,9 +851,11 @@ def phase_member_route(torch, np, sim, kernel, ref):
         width = faults_base._scan_width(m, FULL["V"], member[None])
         say(f"[2] member-aware feasible sets, m={m} with servers {dead} "
             f"dead (scan width {width}, {repeated} rows with a repeated "
-            f"entry): route_tick on 4 ticks equal to the "
-            f"waves one at a time on every output and the policy state "
-            f"({steered} steered); route_select power_of_d, chbl and midas "
+            f"entry): route_tick midas, power_of_d and chbl on 4 ticks each "
+            f"equal to the waves one at a time on every output and the "
+            f"policy state ({steered} steered), power_of_d and chbl never "
+            f"a dead server; "
+            f"route_select power_of_d, chbl and midas "
             f"on {MEMBER_ROWS} rows x 3 input sets bitwise, never a dead "
             f"server")
 
@@ -1413,8 +1543,8 @@ def run_both(torch, sim, cfg, grid, targets):
 
 
 def phase_power_of_d(torch, np, core, sim, counters, wl):
-    """The baseline policy at the main path's constants: route_select
-    once a wave, equal to its plain run bit for bit."""
+    """The baseline policy at the main path's constants: route_tick once
+    a tick, equal to its plain run bit for bit."""
     cfg = core.SimConfig(policy="power_of_d", middleware=("cache",),
                          cache_mode="lease", **FULL)
     T = POD_TICKS
@@ -1426,18 +1556,18 @@ def phase_power_of_d(torch, np, core, sim, counters, wl):
     runs = run_both(torch, sim, cfg, grid, (0.15, 5.0 * cfg.service_ms))
     counts = read_counts(counters)
     want = dict.fromkeys(counters, 0)
-    want["route_select"] = T * cfg.n_groups
-    say(f"[3] launches in the power_of_d run: {counts} (expected T x "
-        f"n_groups = {want['route_select']} route_select, no other kernel)")
+    want["route_tick"] = T
+    say(f"[3] launches in the power_of_d run: {counts} (expected one "
+        f"route_tick a tick, {T}, and no other kernel)")
     check(counts == want, f"{counts} launches, expected {want}")
     check_runs_equal(torch, runs["cuda"][0], runs["ref"][0], "power_of_d")
     (_, outs), secs = runs["cuda"]
     check_result(np, sim._to_result(cfg, outs, None), wl, T, cfg.m)
     say(f"[3] power_of_d, {T} ticks at the same constants: {T / secs:.1f} "
         f"ticks/s; every per-tick output (dV included) and the final state "
-        f"bit-for-bit equal to the plain route_select's run "
+        f"bit-for-bit equal to the plain waves' run "
         f"({runs['ref'][1]:.3f} s)")
-    return counts["route_select"]
+    return counts["route_tick"]
 
 
 def phase_parity(torch, np, core, sim, cfg, wl, res, targets):
@@ -1512,14 +1642,14 @@ def label(kw) -> str:
 
 
 def phase_plane_kernels(torch, np, core, sim, counters, wl, targets):
-    """chbl (route_select once a wave) and midas + cache under every new
-    control law, ablation and the guard (route_tick once a tick), each
-    against its plain run bit for bit.  Returns the launches."""
+    """chbl and midas + cache under every new control law, ablation and
+    the guard (route_tick once a tick), each against its plain run bit
+    for bit.  Returns the launches."""
     T = PLANE_TICKS
     wl = plane_grid(wl, T)
     grid = (wl.keys, wl.mask, wl.is_write)
-    runs_cfg = [(core.SimConfig(policy="chbl", **FULL), "route_select",
-                 T * FULL["n_groups"], (0.15, 500.0))]
+    runs_cfg = [(core.SimConfig(policy="chbl", **FULL), "route_tick", T,
+                 (0.15, 500.0))]
     runs_cfg += [(core.SimConfig(policy="midas", middleware=("cache",),
                                  cache_mode="lease", **FULL, **kw),
                   "route_tick", T, targets) for kw in PLANE_VARIANTS]
@@ -1619,7 +1749,7 @@ def phase_plane_small(np, core, sim):
 def phase_claims(core, counters):
     """E1/E2 at the paper's m = 8 on its five workloads, cut to
     CLAIMS_T ticks: round_robin (no kernel) against power_of_d
-    (route_select once a wave).  Returns the launches."""
+    (route_tick once a tick).  Returns the launches."""
     sys.path.insert(0, str(ROOT / "benchmarks_torch"))
     import paper_claims
 
@@ -1629,12 +1759,11 @@ def phase_claims(core, counters):
                               say=lambda line: say(f"[10] {line}"))
     counts = read_counts(counters)
     want = dict.fromkeys(counters, 0)
-    want["route_select"] = (len(paper_claims.PAPER_WORKLOADS) * CLAIMS_T
-                            * core.SimConfig().n_groups)
+    want["route_tick"] = len(paper_claims.PAPER_WORKLOADS) * CLAIMS_T
     check(counts == want, f"E1/E2: {counts} launches, expected {want}")
     tps = claims["ticks_per_s"]
     say(f"[10] E1/E2 at T={CLAIMS_T} (cut from 3000): "
-        f"{want['route_select']} route_select launches (power_of_d), none "
+        f"{want['route_tick']} route_tick launches (power_of_d), none "
         f"for round_robin; ticks/s round_robin {tps['round_robin']:.1f}, "
         f"power_of_d {tps['power_of_d']:.1f}")
     return counts
@@ -1676,8 +1805,8 @@ def phase_fleet(torch, np, core, sim, counters):
     """The fleet path at phase 3's constants: midas + fleet_cache with
     fleet routing (one route_tick launch a tick, each wave on its proxy's
     view), bitwise its plain run; the Δ = 0 contract; power_of_d under
-    fleet routing (route_select once a proxy's wave); the card against
-    the CPU on the composed workloads.  Returns the launches."""
+    fleet routing (route_tick once a tick too); the card against the CPU
+    on the composed workloads.  Returns power_of_d's launches."""
     cfg = core.SimConfig(**FLEET)
     T = FLEET_TICKS
     wl = core.make_workload(FLEET_SCENARIO, T=T, m=cfg.m, seed=SEED,
@@ -1762,15 +1891,15 @@ def phase_fleet(torch, np, core, sim, counters):
                     (0.15, 5.0 * cfg.service_ms))
     counts = read_counts(counters)
     want = dict.fromkeys(counters, 0)
-    want["route_select"] = n * cfg.P
+    want["route_tick"] = n
     check(counts == want, f"power_of_d fleet: {counts}, expected {want}")
     check_runs_equal(torch, runs["cuda"][0], runs["ref"][0],
                      "power_of_d fleet")
     say(f"[11] power_of_d under fleet routing, {n} ticks: "
-        f"{want['route_select']} route_select launches (one a proxy's "
-        f"wave), no other kernel; bit-for-bit its plain run; "
+        f"{want['route_tick']} route_tick launches (each proxy's wave on "
+        f"its own view), no other kernel; bit-for-bit its plain run; "
         f"{n / runs['cuda'][1]:.1f} ticks/s")
-    pod_launches = counts["route_select"]
+    pod_launches = counts["route_tick"]
 
     for i, (gossip, mode) in enumerate(FLEET_SMALL_CELLS):
         name = FLEET_SMALL_WL[i % len(FLEET_SMALL_WL)]
@@ -1950,9 +2079,9 @@ def phase_faults(torch, np, core, sim, counters, wl3):
     """E12's scenario (the first 300 ticks of phase 3's bursty grid)
     under E13's compound programs at phase 11's constants: midas through
     route_tick bitwise its plain run, with the fault layer's invariants;
-    power_of_d through route_select; zero cost when off and proxy_join;
-    the card against the CPU over E12's fault blocks; E12's headline.
-    Returns the launches (route_tick, route_select)."""
+    power_of_d through route_tick too; zero cost when off and
+    proxy_join; the card against the CPU over E12's fault blocks; E12's
+    headline.  Returns route_tick's launches (midas, power_of_d)."""
     from repro_torch.core import faults
 
     T = FAULT_TICKS
@@ -2060,15 +2189,15 @@ def phase_faults(torch, np, core, sim, counters, wl3):
                     (0.15, 5.0 * cfg.service_ms))
     counts = read_counts(counters)
     want = dict.fromkeys(counters, 0)
-    want["route_select"] = n * cfg.P
+    want["route_tick"] = n
     check(counts == want, f"faulted power_of_d: {counts}, expected {want}")
     check_runs_equal(torch, runs["cuda"][0], runs["ref"][0],
                      "faulted power_of_d")
     say(f"[12] power_of_d under the same program and fleet routing, {n} "
-        f"ticks: {want['route_select']} route_select launches, no other "
+        f"ticks: {want['route_tick']} route_tick launches, no other "
         f"kernel; bit-for-bit its plain run; {n / runs['cuda'][1]:.1f} "
         f"ticks/s ((b) took {time.perf_counter() - t_b:.1f} s)")
-    pod_launches = counts["route_select"]
+    pod_launches = counts["route_tick"]
 
     # (c) zero cost when off, then proxy_join at full width
     t_c = time.perf_counter()
@@ -2235,8 +2364,7 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
     """Phase 3's constants swept over policies × controllers × (bursty,
     storm) × seeds in both metrics modes, with phase 3's targets; then
     E13's crash_during_storm on the fleet cache as a faults= override,
-    with the sweep's own warmup.  Returns the launches (route_tick,
-    route_select)."""
+    with the sweep's own warmup.  Returns route_tick's launches."""
     from repro_torch.core import faults
     from repro_torch.obs import trace as obs_trace
 
@@ -2269,11 +2397,10 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
         counts = read_counts(counters)
         peak[mode] = (torch.cuda.max_memory_allocated(), before)
         want = dict.fromkeys(counters, 0)
-        want["route_tick"] = n_pol * T
-        want["route_select"] = n_pol * T * cfg.n_groups
+        # midas and power_of_d, one route_tick a tick each
+        want["route_tick"] = 2 * n_pol * T
         say(f"[13] launches in the {mode} sweep: {counts} (expected "
-            f"{want['route_tick']} route_tick, {want['route_select']} "
-            f"route_select and no other kernel)")
+            f"{want['route_tick']} route_tick and no other kernel)")
         check(counts == want, f"{mode} sweep: {counts}, expected {want}")
         check(len(res[mode].cells) == spec.n_cells == 3 * n_pol,
               f"{mode} sweep has {len(res[mode].cells)} rows")
@@ -2331,8 +2458,7 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
         "storm x seed 0 its single run with the sweep's targets "
         "(simulate's steps; simulate gives a non-adaptive policy the "
         "default targets) bit for bit on every timeline")
-    tick_launches = 2 * n_pol * T
-    pod_launches = 2 * n_pol * T * cfg.n_groups
+    tick_launches = 2 * 2 * n_pol * T
 
     # the faulted fleet: a faults= override, the sweep's own warmup
     t0 = time.perf_counter()
@@ -2382,7 +2508,7 @@ def phase_sweeps(torch, np, core, sim, counters, wl3, targets):
         f"row and its FleetState bit for bit its single run (simulate's "
         f"steps after one warmup of the config); server 0's queue peaked "
         f"at {q[:, 0].max():.1f} ({sweep_s:.1f} s)")
-    return tick_launches + want["route_tick"], pod_launches
+    return tick_launches + want["route_tick"]
 
 
 # ---------------------------------------------------------------------------
@@ -3468,7 +3594,8 @@ def main() -> int:
         say(f"[2] phases 1-2 took {time.perf_counter() - t_start:.1f} s")
         cfg, wl, res, targets, tick_launches = phase_main(
             torch, np, core, sim, counters)
-        launches = phase_power_of_d(torch, np, core, sim, counters, wl)
+        pod_launches = phase_power_of_d(torch, np, core, sim, counters,
+                                        wl)
         phase_parity(torch, np, core, sim, cfg, wl, res, targets)
         phase_small(np, core)
         t10 = time.perf_counter()
@@ -3485,8 +3612,8 @@ def main() -> int:
                                              wl)
         say(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
         t13 = time.perf_counter()
-        sweep_tick, sweep_pod = phase_sweeps(torch, np, core, sim, counters,
-                                             wl, targets)
+        sweep_tick = phase_sweeps(torch, np, core, sim, counters, wl,
+                                  targets)
         say(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
         t14 = time.perf_counter()
         unroll_pod, unroll_tick = phase_unrolled(torch, np, core, sim,
@@ -3551,16 +3678,15 @@ def main() -> int:
     say(json.dumps({"kernels": [
         kernel_entry("route_select", csrc.format("midas_route",
                                                  "route_select"),
-                     REPLACES, launches + plane["route_select"]
-                     + claims_launches["route_select"] + fleet_pod
-                     + fault_pod + sweep_pod + unroll_pod,
+                     REPLACES, plane["route_select"]
+                     + claims_launches["route_select"] + unroll_pod,
                      max_err, main_row),
         kernel_entry("route_tick", csrc.format("midas_route",
                                                "route_select"),
-                     TICK_REPLACES, tick_launches + plane["route_tick"]
-                     + FLEET_TICKS + fault_tick + sweep_tick + unroll_tick,
-                     0.0,
-                     tick_row),
+                     TICK_REPLACES, tick_launches + pod_launches
+                     + plane["route_tick"] + claims_launches["route_tick"]
+                     + FLEET_TICKS + fleet_pod + fault_tick + fault_pod
+                     + sweep_tick + unroll_tick, 0.0, tick_row),
         kernel_entry("flash_attention",
                      csrc.format("flash_attention", "flash_attention"),
                      "src/repro/kernels/flash_attention/kernel.py:110",

@@ -55,7 +55,9 @@ class RouteContext(NamedTuple):
     now_ms: torch.Tensor  # () float32 tick clock
     draws: Optional[tuple]  # this wave's slice of the policy's draws
     m: int  # number of servers
-    fixed_d: int  # d for non-adaptive power-of-d
+    # d for non-adaptive power-of-d: cfg.fixed_d, or in a tick's context
+    # (Policy.route_tick) the run's () int32 tensor of it
+    fixed_d: Any
     # resolved routing implementation: "ref" (plain PyTorch) or "cuda"
     # (the route_select kernel; bit-identical by contract)
     route_impl: str = "ref"
@@ -124,7 +126,8 @@ def steering_dv_waves(
     order that depends on the row's length alone).  So the result equals
     the waves one at a time bit for bit.  (The sums are added from the
     first wave's, not from 0.0: a sum that starts at +0.0 is never -0.0,
-    so 0.0 + s == s.)  G >= 1."""
+    so 0.0 + s == s.)  G >= 1.  The ``route_tick`` kernel computes the
+    same sums on the card; this is their plain expression."""
     prim = ctx.feas[..., 0]
     moved = ctx.mask & (assign != prim) & (assign >= 0)
     dv = 2.0 * (views.gather(1, assign.clamp(min=0).long())

@@ -15,13 +15,13 @@ import torch
 from repro_torch.core.policies.base import (
     Policy,
     RouteStats,
+    TickRoute,
     register,
     steering_dv,
 )
 from repro_torch.core.xla import fma, reduce_sum
 from repro_torch.kernels.midas_route import ops as route_ops
-
-C_LOAD = 1.25  # CHBL capacity factor: cap = c * (mean load + 1)
+from repro_torch.kernels.midas_route.ref import C_LOAD
 
 
 def load_cap(L_view: torch.Tensor, c: float = C_LOAD) -> torch.Tensor:
@@ -70,3 +70,18 @@ class BoundedLoadHash(Policy):
             eligible=z,
             dV=steering_dv(ctx, assign),
         )
+
+    def route_tick(self, state, ctx):
+        """The tick's G waves in one launch of the ``route_tick`` kernel
+        (its chbl mode): :func:`route_bounded_load` with each wave's cap
+        from that wave's view (rounded as :func:`load_cap`), the steered
+        count and the waves' dV summed as :func:`steering_dv` sums each
+        wave; no state.  A (G, m) ``ctx.L_view`` is fleet routing's
+        per-wave views."""
+        assign, _, arrivals, steered, eligible, dv, _ = route_ops.route_tick(
+            ctx.keys, ctx.mask, ctx.feas, None, None, ctx.L_view,
+            mode="chbl",
+        )
+        return state, TickRoute(
+            assign=assign, arrivals=arrivals,
+            stats=RouteStats(steered=steered, eligible=eligible, dV=dv))

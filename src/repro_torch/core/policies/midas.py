@@ -26,7 +26,6 @@ from repro_torch.core.policies.base import (
     register,
     sample_ranks,
     steering_dv,
-    steering_dv_waves,
 )
 from repro_torch.core.xla import set_last
 from repro_torch.kernels.common import resolve_device
@@ -177,22 +176,20 @@ class Midas(Policy):
     def route_tick(self, state: MidasState, ctx):
         """The tick's G waves in one launch of the ``route_tick`` kernel:
         route_select's test, the pins, the leaky bucket and the history
-        ring of :func:`route_midas` for every wave in order.  The dV is
-        taken from the kernel's per-wave views and assignments with the
-        per-wave path's operations (``steering_dv_waves``).  A (G, m)
+        ring of :func:`route_midas` for every wave in order, and the
+        waves' dV summed as :func:`steering_dv` sums each wave.  A (G, m)
         ``ctx.L_view`` is fleet routing's per-wave views: wave g routes
         on row g alone, with no sends shared within the tick."""
         k = ctx.knobs
-        assign, views, arrivals, steered, eligible, hist_idx = (
+        assign, _, arrivals, steered, eligible, dv, hist_idx = (
             route_ops.route_tick(
                 ctx.keys, ctx.mask, ctx.feas, ctx.draws.rank,
                 ctx.draws.tie, ctx.L_view, ctx.p50_view, state.pin_server,
                 state.pin_expiry, state.steer_hist, state.elig_hist,
                 state.hist_idx, d=k.d, delta_l=k.delta_l,
                 delta_t=k.delta_t, f_max=k.f_max, pin_ms=k.pin_ms,
-                now_ms=ctx.now_ms,
+                now_ms=ctx.now_ms, mode="midas",
             ))
-        stats = RouteStats(steered=steered, eligible=eligible,
-                           dV=steering_dv_waves(ctx, views, assign))
+        stats = RouteStats(steered=steered, eligible=eligible, dV=dv)
         return state._replace(hist_idx=hist_idx), TickRoute(
             assign=assign, arrivals=arrivals, stats=stats)

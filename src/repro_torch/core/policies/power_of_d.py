@@ -8,6 +8,7 @@ from repro_torch.core import prng
 from repro_torch.core.policies.base import (
     Policy,
     RouteStats,
+    TickRoute,
     WaveDraws,
     register,
     sample_ranks,
@@ -58,3 +59,17 @@ class PowerOfD(Policy):
         return state, assign, RouteStats(
             steered=z, eligible=z, dV=steering_dv(ctx, assign)
         )
+
+    def route_tick(self, state, ctx):
+        """The tick's G waves in one launch of the ``route_tick`` kernel
+        (its power_of_d mode): :func:`route_power_of_d` on each wave's
+        view and the waves' dV summed as :func:`steering_dv` sums each
+        wave; no state.  A (G, m) ``ctx.L_view`` is fleet routing's
+        per-wave views; ``ctx.fixed_d`` the run's () int32 d."""
+        assign, _, arrivals, steered, eligible, dv, _ = route_ops.route_tick(
+            ctx.keys, ctx.mask, ctx.feas, ctx.draws.rank, ctx.draws.tie,
+            ctx.L_view, d=ctx.fixed_d, mode="power_of_d",
+        )
+        return state, TickRoute(
+            assign=assign, arrivals=arrivals,
+            stats=RouteStats(steered=steered, eligible=eligible, dV=dv))

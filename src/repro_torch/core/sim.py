@@ -47,9 +47,9 @@ engine: no feasible set and no policy draw is hoisted out of the tick;
 each wave gathers its own feasible set (member-aware on the tick's
 detected row under a membership fault), takes its key ``fold_in(r_route,
 g)`` and its draws (made for the tick's waves at its start) and routes
-through ``Policy.route``, so midas launches ``route_select`` once a wave
-and never ``route_tick``.  It gives the hoisted engine's results bit for
-bit, and is E10's "before" engine.
+through ``Policy.route``, so midas, power_of_d and chbl launch
+``route_select`` once a wave and never ``route_tick``.  It gives the
+hoisted engine's results bit for bit, and is E10's "before" engine.
 """
 
 from __future__ import annotations
@@ -668,6 +668,8 @@ class _Consts(NamedTuple):
     member: torch.Tensor  # (m,) float32 1
     # (m,) float32 serve_per_tick, the service rate a fault scales
     rate: Optional[torch.Tensor] = None
+    # () int32 cfg.fixed_d, power_of_d's d in a tick's route_tick launch
+    fixed_d: Optional[torch.Tensor] = None
 
 
 def _route_waves(
@@ -688,10 +690,10 @@ def _route_waves(
     view plus this tick's own sends from the earlier waves, or, with
     ``views`` (fleet routing: (G, m), row g the view of the proxy
     serving wave g), its own row alone.  With the CUDA impl a policy
-    that has a kernel for a whole tick (``Policy.route_tick``: midas)
-    routes it in one launch; otherwise, and always on the CPU, the waves
-    run one at a time, which is that kernel's plain version.  Returns
-    (policy state, TickRoute)."""
+    that has a kernel for a whole tick (``Policy.route_tick``: midas,
+    power_of_d, chbl) routes it in one launch; otherwise, and always on
+    the CPU, the waves run one at a time, which is that kernel's plain
+    version.  Returns (policy state, TickRoute)."""
     ps = state.policy
     if impl == "cuda":
         tick = policy.route_tick(ps, RouteContext(
@@ -704,7 +706,7 @@ def _route_waves(
             now_ms=now_ms,
             draws=draws,
             m=cfg.m,
-            fixed_d=cfg.fixed_d,
+            fixed_d=consts.fixed_d,
             route_impl=impl,
         ))
         if tick is not None:
@@ -1057,6 +1059,7 @@ def run_ticks(
         member=torch.ones((cfg.m,), dtype=torch.float32, device=dev),
         rate=torch.full((cfg.m,), cfg.serve_per_tick, dtype=torch.float32,
                         device=dev),
+        fixed_d=torch.full((), cfg.fixed_d, dtype=torch.int32, device=dev),
     )
     if keys.shape[0] == 0:
         raise ValueError("the workload grid has no ticks")

@@ -3,9 +3,11 @@
 ``route_select`` (``csrc/route_select.cu``) replaces the Pallas TPU
 kernel ``repro/kernels/midas_route/kernel.py:route_select``
 (``_route_body``).  ``route_tick`` (the same source) routes a whole tick
-of the midas policy in one launch: route_select's midas test for each of
-the tick's G waves, with the pins, the leaky bucket and the history ring
-of ``repro/core/policies/midas.py:route_midas`` between them, bit for
+of one of its policies in one launch: route_select's test for each of
+the tick's G waves (midas, power_of_d, or chbl with its cap from the
+wave's view), for midas with the pins, the leaky bucket and the history
+ring of ``repro/core/policies/midas.py:route_midas`` between them, and
+the tick's steering dV summed in the plain version's order, bit for
 bit the waves one at a time, and under fleet routing each wave on its
 own proxy's view.  ``dispatch_fused`` and ``dispatch_candidates``
 (both in ``csrc/midas_dispatch.cu``) replace the two passes of its
@@ -25,7 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +36,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_tensor as _check
 from repro_torch.kernels.common import refuse_grad
 from repro_torch.kernels.midas_route.ref import (
+    C_LOAD,
     ROUTE_MODES,
     check_mode,
     quantile_plan,
@@ -42,8 +45,9 @@ from repro_torch.kernels.midas_route.ref import (
 SOURCE = Path(__file__).resolve().parent / "csrc" / "route_select.cu"
 MAX_D = 16
 MAX_M = 6144  # 2·m float32 staged in 48 KB of shared memory
-# route_tick stages 3·m float32 and 13 bytes a row of one wave in shared
-# memory: at MAX_M and MAX_RG that is 176 KB of the block's 227 KB
+# route_tick stages 2·m float32 and 4 bytes a row of one wave in shared
+# memory, midas 3·m float32 and 17 bytes a row: at MAX_M and MAX_RG that
+# is 80 KB and 208 KB of the block's 227 KB
 MAX_RG = 8192
 FLAGS = _build.EXACT_FLAGS  # bit-equal to the plain version
 DISPATCH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
@@ -63,7 +67,8 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.route_select_launch.restype = ctypes.c_int
         lib.route_tick_launch.argtypes = (
-            [ctypes.c_void_p] * 24 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 25 + [ctypes.c_int] * 9
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.route_tick_launch.restype = ctypes.c_int
     return lib
 
@@ -159,78 +164,99 @@ def route_tick(
     keys: torch.Tensor,
     mask: torch.Tensor,
     feas: torch.Tensor,
-    rank: torch.Tensor,
-    tie: torch.Tensor,
+    rank: Optional[torch.Tensor],
+    tie: Optional[torch.Tensor],
     L_hat: torch.Tensor,
-    p50: torch.Tensor,
-    pin_server: torch.Tensor,
-    pin_expiry: torch.Tensor,
-    steer_hist: torch.Tensor,
-    elig_hist: torch.Tensor,
-    hist_idx: torch.Tensor,
+    p50: Optional[torch.Tensor] = None,
+    pin_server: Optional[torch.Tensor] = None,
+    pin_expiry: Optional[torch.Tensor] = None,
+    steer_hist: Optional[torch.Tensor] = None,
+    elig_hist: Optional[torch.Tensor] = None,
+    hist_idx: Optional[torch.Tensor] = None,
     *,
-    d: torch.Tensor,
-    delta_l: torch.Tensor,
-    delta_t: torch.Tensor,
-    f_max: torch.Tensor,
-    pin_ms: torch.Tensor,
-    now_ms: torch.Tensor,
-) -> Tuple[torch.Tensor, ...]:
-    """Route one tick's G waves of the midas policy in one launch.
+    d: Optional[torch.Tensor] = None,
+    delta_l: Optional[torch.Tensor] = None,
+    delta_t: Optional[torch.Tensor] = None,
+    f_max: Optional[torch.Tensor] = None,
+    pin_ms: Optional[torch.Tensor] = None,
+    now_ms: Optional[torch.Tensor] = None,
+    mode: str = "midas",
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Route one tick's G waves of a ``route_select`` policy in one launch.
 
-    keys (G, Rg) int64 in [0, N), mask (G, Rg) bool, feas (G, Rg, d_max)
-    int32, rank (G, Rg, d_max) int8 and tie (G, Rg, d_max) float32 are
-    the waves and their draws; p50 (m,) float32 the stale p50
-    telemetry and L_hat the stale queue view: (m,) float32, one view
-    that wave g routes on plus the sends of waves 0..g-1, or (G, m),
-    fleet routing's per-wave views, wave g routing on row g alone (the
-    kernel's base views: no sends of earlier waves added);
-    pin_server (N,) int32, pin_expiry (N,) float32, steer_hist and
-    elig_hist (W,) float32 and hist_idx () int32 the policy state; the
-    knobs and the tick clock are 0-d tensors (d int32, the rest float32).
+    mask (G, Rg) bool and feas (G, Rg, d_max) int32 are the waves; L_hat
+    the stale queue view: (m,) float32, one view that wave g routes on
+    plus the sends of waves 0..g-1, or (G, m), fleet routing's per-wave
+    views, wave g routing on row g alone (the kernel's base views: no
+    sends of earlier waves added).  What else a mode reads:
+    ``"power_of_d"`` rank (G, Rg, d_max) int8 and tie (G, Rg, d_max)
+    float32 (the wave draws) and d () int32 (``cfg.fixed_d``);
+    ``"chbl"`` nothing more (the cap ``C_LOAD * (mean + 1)`` comes from
+    each wave's view, rounded as ``core.policies.bounded_load.load_cap``
+    rounds it); ``"midas"`` also keys (G, Rg) int64 in [0, N), p50 (m,)
+    float32, the policy state pin_server (N,) int32, pin_expiry (N,)
+    float32, steer_hist and elig_hist (W,) float32 and hist_idx () int32,
+    and the knobs and the tick clock as 0-d tensors (d int32, the rest
+    float32).  Arguments a mode does not read are ignored.
 
     Returns (assign (G, Rg) int32, views (G, m) float32: the view each
     wave was routed on, arrivals (m,) float32, steered () float32,
-    eligible () float32, the new hist_idx () int32).  The pin tables
-    and the histories are updated in place.  Equal bit for bit to the
-    waves one at a time through ``core.policies.midas.route_midas``.
+    eligible () float32, dv () float32: the waves' steering dV, each
+    wave summed in ``xla.loop_sum``'s order and the sums added to +0.0
+    in wave order, and the new hist_idx () int32, None outside midas).
+    midas's pin tables and histories are updated in place.  Equal bit
+    for bit to the waves one at a time through the mode's policy
+    (``core/sim.py:_route_waves`` with the plain impl).
     """
+    check_mode(mode)
     if feas.dim() != 3:
         raise ValueError(f"feas must be (G, Rg, d_max), got {feas.shape}")
     G, Rg, d_max = feas.shape
-    m, N, W = p50.numel(), pin_server.numel(), steer_hist.numel()
+    m = L_hat.shape[-1]
     if not 1 <= d_max <= MAX_D:
         raise ValueError(f"d_max must be in [1, {MAX_D}], got {d_max}")
     if not 1 <= m <= MAX_M:
         raise ValueError(f"m must be in [1, {MAX_M}], got {m}")
     if Rg > MAX_RG:
         raise ValueError(f"a wave's rows Rg must be <= {MAX_RG}, got {Rg}")
-    if not 1 <= N < 2**31:
+    midas = mode == "midas"
+    N = 0 if pin_server is None else pin_server.numel()
+    W = 0 if steer_hist is None else steer_hist.numel()
+    if midas and pin_server is not None and not 1 <= N < 2**31:
         raise ValueError(f"N must be in [1, 2**31), got {N}")
-    if W < 1:
+    if midas and steer_hist is not None and W < 1:
         raise ValueError(f"the history window must hold >= 1 wave, got {W}")
     dev = feas.device
-    for name, t, dtype, shape in (
-        ("keys", keys, torch.int64, (G, Rg)),
+    reads = [
         ("mask", mask, torch.bool, (G, Rg)),
         ("feas", feas, torch.int32, (G, Rg, d_max)),
-        ("rank", rank, torch.int8, (G, Rg, d_max)),
-        ("tie", tie, torch.float32, (G, Rg, d_max)),
         ("L_hat", L_hat, torch.float32,
          (G, m) if L_hat.dim() == 2 else (m,)),
-        ("p50", p50, torch.float32, (m,)),
-        ("pin_server", pin_server, torch.int32, (N,)),
-        ("pin_expiry", pin_expiry, torch.float32, (N,)),
-        ("steer_hist", steer_hist, torch.float32, (W,)),
-        ("elig_hist", elig_hist, torch.float32, (W,)),
-        ("hist_idx", hist_idx, torch.int32, ()),
-        ("d", d, torch.int32, ()),
-        ("delta_l", delta_l, torch.float32, ()),
-        ("delta_t", delta_t, torch.float32, ()),
-        ("f_max", f_max, torch.float32, ()),
-        ("pin_ms", pin_ms, torch.float32, ()),
-        ("now_ms", now_ms, torch.float32, ()),
-    ):
+    ]
+    if mode != "chbl":
+        reads += [
+            ("rank", rank, torch.int8, (G, Rg, d_max)),
+            ("tie", tie, torch.float32, (G, Rg, d_max)),
+            ("d", d, torch.int32, ()),
+        ]
+    if midas:
+        reads += [
+            ("keys", keys, torch.int64, (G, Rg)),
+            ("p50", p50, torch.float32, (m,)),
+            ("pin_server", pin_server, torch.int32, (N,)),
+            ("pin_expiry", pin_expiry, torch.float32, (N,)),
+            ("steer_hist", steer_hist, torch.float32, (W,)),
+            ("elig_hist", elig_hist, torch.float32, (W,)),
+            ("hist_idx", hist_idx, torch.int32, ()),
+            ("delta_l", delta_l, torch.float32, ()),
+            ("delta_t", delta_t, torch.float32, ()),
+            ("f_max", f_max, torch.float32, ()),
+            ("pin_ms", pin_ms, torch.float32, ()),
+            ("now_ms", now_ms, torch.float32, ()),
+        ]
+    for name, t, dtype, shape in reads:
+        if t is None:
+            raise ValueError(f"route_tick in mode {mode!r} needs {name}")
         _check(name, t, dtype, shape, dev)
     # the base view's stride (0: one view for every wave) and whether
     # the earlier waves' sends are added to it
@@ -240,25 +266,34 @@ def route_tick(
             f"the CUDA route_tick needs tensors on a CUDA device, got "
             f"{dev}; on the CPU the engine routes the waves one at a time"
         )
+    read = {name: t for name, t, _, _ in reads}
     f32 = dict(dtype=torch.float32, device=dev)
     assign = torch.empty((G, Rg), dtype=torch.int32, device=dev)
     views = torch.empty((G, m), **f32)
     arrivals = torch.empty((m,), **f32)
     steered = torch.empty((), **f32)
     eligible = torch.empty((), **f32)
-    new_idx = torch.empty((), dtype=torch.int32, device=dev)
+    dv = torch.empty((), **f32)
+    new_idx = (torch.empty((), dtype=torch.int32, device=dev) if midas
+               else None)
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        *(read.get(name) for name in (
+            "keys", "mask", "feas", "rank", "tie", "L_hat", "p50", "d",
+            "delta_l", "delta_t", "f_max", "pin_ms", "now_ms",
+            "pin_server", "pin_expiry", "steer_hist", "elig_hist",
+            "hist_idx")),
+        assign, views, arrivals, steered, eligible, dv, new_idx,
+    )]
     lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.route_tick_launch(*(t.data_ptr() for t in (
-            keys, mask, feas, rank, tie, L_hat, p50, d, delta_l, delta_t,
-            f_max, pin_ms, now_ms, pin_server, pin_expiry, steer_hist,
-            elig_hist, hist_idx, assign, views, arrivals, steered,
-            eligible, new_idx,
-        )), G, Rg, d_max, m, N, W, base_stride, accumulate, _stream(dev))
+        err = lib.route_tick_launch(
+            *ptrs, G, Rg, d_max, m, N, W, base_stride, accumulate,
+            ROUTE_MODES.index(mode), float(np.float32(1.0 / m)),
+            float(np.float32(C_LOAD)), _stream(dev))
     if err != 0:
         raise RuntimeError(f"route_tick launch failed: cudaError {err}")
     route_tick.launches += 1
-    return assign, views, arrivals, steered, eligible, new_idx
+    return assign, views, arrivals, steered, eligible, dv, new_idx
 
 
 route_tick.launches = 0

@@ -12,10 +12,10 @@ from repro_torch.kernels.midas_route import kernel, ref
 
 topk_dispatch = ref.topk_dispatch
 expert_load = ref.expert_load
-# a tick of the midas policy in one launch (given (G, m) views, fleet
-# routing's, each wave on its own row); its plain version is the
-# engine's loop over the waves (core/sim.py:_route_waves), which runs
-# route_waves once a wave
+# a tick of the midas, power_of_d or chbl policy in one launch, its dV
+# included (given (G, m) views, fleet routing's, each wave on its own
+# row); its plain version is the engine's loop over the waves
+# (core/sim.py:_route_waves), which runs route_waves once a wave
 route_tick = kernel.route_tick
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 ROUTE_MODES = ("power_of_d", "midas", "chbl")
+C_LOAD = 1.25  # CHBL capacity factor: cap = c * (mean load + 1)
 
 
 def check_mode(mode: str) -> None:

@@ -1,14 +1,19 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 ``route_select`` must equal its plain version bit for bit, and
-``route_tick`` the engine's waves one at a time through it (assignments,
-arrivals, counts, dV, pin tables, histories and ``hist_idx``), with
-repeated keys, live and expired pins, binding and free budgets, one
-wave, every row masked or pinned, a budget of 0, 4096 rows a wave, and
-replayed from a CUDA graph; both also on the member-aware feasible
-sets of a membership fault (m = 64 with server 0 dead; m = 4 with three
-dead, every row repeating its one live server), and a faulted fleet
-run through each equals its plain run;
+``route_tick`` in each of its modes (midas, power_of_d, chbl) the
+engine's waves one at a time through it (assignments, the view each
+wave was routed on, arrivals, counts, the dV to the bit, also against
+``steering_dv_waves`` on those views, and midas's pin tables, histories
+and ``hist_idx``),
+with repeated keys, live and expired pins, binding and free budgets, one
+wave, every row masked or pinned, a budget of 0, 4096 rows a wave, the
+dV's and chbl's cap's sum orders at 3-1100 rows a wave and m = 1-1100,
+loads that sit on chbl's cap, on one view and on fleet routing's
+per-wave views, and replayed from a CUDA graph; both also on the
+member-aware feasible sets of a membership fault (m = 64 with server 0
+dead; m = 4 with three dead, every row repeating its one live server),
+and a faulted fleet run through each equals its plain run;
 ``flash_attention`` and ``decode_attention`` must agree within the JAX
 suite's tolerance (2e-5 relative and absolute in float32, 2e-2 in
 bfloat16), on tests/test_kernels.py's shapes, the serving shapes of
@@ -57,6 +62,7 @@ only PyTorch:
         tests/test_torch_kernels_cuda.py
 """
 
+import contextlib
 import itertools
 import re
 
@@ -137,7 +143,8 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
 # route_tick cases: (seed, G, Rg, f_max, key pool, variant) at m = 64,
 # d_max = 4, N = 10**6 and a 5-wave history ring (so a tick wraps it):
 # chip_smoke's phase-2 cases, then one wave, every row masked, every row
-# pinned, a budget of 0 and 4096 rows a wave (16 chunks of the block)
+# pinned, a budget of 0 and 4096 rows a wave (16 chunks of the block);
+# f_max, the pins and the ring are midas's alone
 TICK_CASES = [
     (1, 8, 64, 0.3, 40, "plain"), (2, 8, 64, 0.3, 8, "plain"),
     (3, 8, 64, 1.0, 40, "plain"), (4, 8, 64, 1.0, 8, "plain"),
@@ -145,15 +152,41 @@ TICK_CASES = [
     (7, 8, 64, 0.3, 40, "pinned"), (8, 8, 64, 0.0, 40, "plain"),
     (9, 2, 4096, 1.0, 500, "plain"), (10, 3, 300, 0.3, 30, "plain"),
 ]
+TICK_POLICIES = ("midas", "power_of_d", "chbl")
+# (Rg, m): the dV's loop_sum below 16 rows, at 16, between 16 and 32
+# (lanes and the rest), just above 32 (windows of 32 with pads), at 64
+# and 66 and on two levels of windows (1100); chbl's cap at m = 1, 8,
+# 33 (one pad), 64, 100, 259 and 1100 (two levels)
+SUM_CASES = [(3, 1), (16, 8), (31, 33), (33, 64), (64, 100), (66, 259),
+             (1100, 1100)]
+
+
+def _on_the_cap(L, c_idx=(0, 3)):
+    """``L`` with the servers ``c_idx`` moved onto chbl's cap: a fixed
+    point of L[i] <- load_cap(L), found by iterating (float32 loads on
+    the plain version's cap exactly)."""
+    from repro_torch.core.policies.bounded_load import load_cap
+
+    L = np.array(L, np.float32)
+    idx = [i % L.size for i in c_idx]
+    for _ in range(200):
+        c = np.float32(load_cap(torch.as_tensor(L)).item())
+        if (L[idx] == c).all():
+            return L
+        L[idx] = c
+    raise AssertionError("no load vector on the cap found")
 
 
 def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
-               N=10**6, W=5, member=None):
+               N=10**6, W=5, member=None, policy="midas"):
     """One tick's engine inputs on the card, made with numpy: keys from a
     small pool (repeated within and across waves), a ragged mask, live
     and expired pins on the pool, integer histories, hot servers.  With
     ``member`` ((m,) bool) the feasible sets are the member-aware ones
-    the fault layer gathers, at its scan width."""
+    the fault layer gathers, at its scan width.  ``policy`` is midas
+    (with its state and knobs), power_of_d (fixed_d 2, 3 or 4 by the
+    seed; no state) or chbl (no draws, no state); variant "on_cap" puts
+    two servers' loads on chbl's cap."""
     from repro_torch.core import hashring, policies, prng
     from repro_torch.core import sim as tsim
     from repro_torch.core.controllers.base import Knobs
@@ -167,7 +200,8 @@ def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
     if variant == "masked":
         mask[:] = False
     feas = _feasible(keys, m, d_max, member)
-    policy = policies.get("midas")
+    name = policy
+    policy = policies.get(name)
     draws = policy.draws(prng.fold_in(prng.PRNGKey(seed, "cuda")[None],
                                       torch.arange(G, device="cuda")),
                          (Rg, d_max))
@@ -187,16 +221,20 @@ def _tick_case(seed, G, Rg, f_max, pool, variant, m=64, d_max=4,
         hist_idx=t(np.int32(rng.integers(0, 3 * W))))
     L_hat = np.round(rng.random(m) * 6, 1).astype(np.float32)
     L_hat[rng.integers(0, m, 4)] += 30.0
-    cfg = tsim.SimConfig(m=m, N=N, d_max=d_max, n_groups=G)
+    if variant == "on_cap":
+        L_hat = _on_the_cap(L_hat)
+    cfg = tsim.SimConfig(m=m, N=N, d_max=d_max, n_groups=G, policy=name,
+                         fixed_d=2 + seed % 3)
     st = tsim.init_state(cfg, device="cuda")._replace(
         L_hat=t(L_hat), p50_hat=t((rng.random(m) * 300).astype(np.float32)),
-        policy=state)
+        policy=state if name == "midas" else ())
     knobs = Knobs(d=t(np.int32(3)), delta_l=t(np.float32(1.0)),
                   delta_t=t(np.float32(-1e9)), f_max=t(np.float32(f_max)),
                   pin_ms=t(np.float32(300.0)), ttl_scale=t(np.float32(1.0)))
     consts = tsim._Consts(*(torch.ones((), device="cuda") * v
                             for v in (0.0, 1.0)), torch.ones(m,
-                                                             device="cuda"))
+                                                             device="cuda"),
+                          fixed_d=t(np.int32(cfg.fixed_d)))
     return cfg, policy, st, knobs, t(np.float32(now)), keys, mask, feas, \
         draws, consts
 
@@ -225,19 +263,76 @@ def _clone(tree):
     return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
 
 
-def _route_tick_both(case):
+@contextlib.contextmanager
+def _recording():
+    """Record the outputs of each route_tick call (the policies call it
+    through the ops module), the views included, which the engine's
+    TickRoute leaves out."""
+    from repro_torch.kernels.midas_route import ops
+
+    real, calls = ops.route_tick, []
+
+    def record(*args, **kw):
+        calls.append(real(*args, **kw))
+        return calls[-1]
+
+    ops.route_tick = record
+    try:
+        yield calls
+    finally:
+        ops.route_tick = real
+
+
+def _assert_views(case, want, out, views=None):
+    """route_tick's views (``out[1]``) equal the views the plain loop
+    routed each wave on (``views``, or the shared view plus the earlier
+    waves' sends), and its dV (``out[5]``) equals ``steering_dv_waves``
+    on them and the plain loop's assignments, bit for bit."""
+    from repro_torch.core import sim as tsim
+    from repro_torch.core.policies.base import (
+        RouteContext,
+        steering_dv_waves,
+    )
+
+    cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
+    if views is None:
+        sent, rows = torch.zeros_like(st.L), []
+        for g in range(keys.shape[0]):
+            rows.append(st.L_hat + sent)
+            sent = sent + tsim._wave_counts(cfg.m, mask[g], want.assign[g])
+        views = torch.stack(rows)
+    ctx = RouteContext(keys=keys, mask=mask, feas=feas, L_view=None,
+                       p50_view=None, knobs=None, now_ms=None, draws=None,
+                       m=cfg.m, fixed_d=None)
+    dv = steering_dv_waves(ctx, views, want.assign)
+    for name, w, g in (("views", views, out[1]), ("dV", dv, out[5])):
+        assert w.dtype == g.dtype and torch.equal(_bits(w), _bits(g)), name
+
+
+def _route_tick_both(case, views=None):
     """The tick through the plain wave loop and through the kernel, each
-    from its own copy of the state."""
+    from its own copy of the state, on the shared view or on per-wave
+    ``views``; the kernel's views and dV held against the plain loop's
+    (:func:`_assert_views`)."""
     from repro_torch.core import sim as tsim
 
     cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
     out = {}
     for impl in ("ref", "cuda"):
         s = st._replace(policy=_clone(st.policy))
-        out[impl] = tsim._route_waves(cfg, policy, s, knobs, now, keys,
-                                      mask, feas, draws, impl, consts)
+        with _recording() as calls:
+            out[impl] = tsim._route_waves(cfg, policy, s, knobs, now, keys,
+                                          mask, feas, draws, impl, consts,
+                                          views)
+        assert len(calls) == (impl == "cuda")
     torch.cuda.synchronize()
+    _assert_views(case, out["ref"][1], calls[0], views)
     return out["ref"], out["cuda"]
+
+
+def _bits(x):
+    """A float32 tensor's bits (so +0.0 and -0.0 differ), else itself."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
 def _assert_ticks_equal(want, got, what):
@@ -246,74 +341,127 @@ def _assert_ticks_equal(want, got, what):
              ("arrivals", wt.arrivals, gt.arrivals)]
     pairs += [(f, getattr(wt.stats, f), getattr(gt.stats, f))
               for f in ("steered", "eligible", "dV")]
-    pairs += [(f, getattr(wps, f), getattr(gps, f)) for f in wps._fields]
+    pairs += [(f, getattr(wps, f), getattr(gps, f))
+              for f in getattr(wps, "_fields", ())]
+    assert type(wps) is type(gps), what
     for name, w, g in pairs:
-        assert w.dtype == g.dtype and torch.equal(w, g), (what, name)
+        assert w.dtype == g.dtype and torch.equal(_bits(w), _bits(g)), (
+            what, name)
 
 
 @pytest.mark.requires_cuda
-def test_cuda_route_tick_matches_the_waves_one_at_a_time():
+@pytest.mark.parametrize("policy", TICK_POLICIES)
+def test_cuda_route_tick_matches_the_waves_one_at_a_time(policy):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.midas_route import kernel
 
-    steered = 0
+    steered = moved = 0
     for case in TICK_CASES:
         before = kernel.route_tick.launches
-        want, got = _route_tick_both(_tick_case(*case))
+        want, got = _route_tick_both(_tick_case(*case, policy=policy))
         assert kernel.route_tick.launches == before + 1, case
         _assert_ticks_equal(want, got, case)
         steered += int(got[1].stats.steered)
-        if case[-1] in ("masked", "pinned") or case[3] == 0.0:
+        moved += float(got[1].stats.dV) != 0.0
+        if case[-1] == "masked" or (policy == "midas" and (
+                case[-1] == "pinned" or case[3] == 0.0)):
             assert int(got[1].stats.steered) == 0, case
-    assert steered > 0
+    assert moved > 0
+    assert (steered > 0) == (policy != "power_of_d")
 
 
 @pytest.mark.requires_cuda
-def test_cuda_route_tick_fleet_views_match_the_waves_one_at_a_time():
+@pytest.mark.parametrize("policy", TICK_POLICIES)
+def test_cuda_route_tick_sum_orders_match_the_waves(policy):
+    """The dV's loop_sum and chbl's reduce_sum of the view at every shape
+    of their schedules (SUM_CASES), on one view and on per-wave views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    moved = 0
+    for i, (Rg, m) in enumerate(SUM_CASES):
+        case = _tick_case(20 + i, 3, Rg, 0.5, max(4, Rg // 2), "plain",
+                          m=m, policy=policy)
+        want, got = _route_tick_both(case)
+        _assert_ticks_equal(want, got, (policy, Rg, m))
+        moved += float(got[1].stats.dV) != 0.0
+        views = torch.as_tensor(_views(20 + i, 3, m)).cuda()
+        want, got = _route_tick_both(case, views)
+        _assert_ticks_equal(want, got, (policy, Rg, m, "fleet"))
+    assert moved >= len(SUM_CASES) - 1  # m = 1 moves nothing
+
+
+@pytest.mark.requires_cuda
+def test_cuda_route_tick_chbl_loads_on_the_cap():
+    """chbl with two servers' loads exactly on the cap (load <= cap keeps
+    the request): the first wave's view on one shared view, every wave's
+    on per-wave views, at m = 8 and 64; the kernel's cap rounds as
+    load_cap does, so it routes as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for m in (8, 64):
+        case = _tick_case(40 + m, 4, 64, 0.5, 30, "on_cap", m=m,
+                          policy="chbl")
+        cfg, pol, st, knobs, now, keys, mask, feas, draws, consts = case
+        L = st.L_hat.cpu().numpy()
+        # primaries on the cap, and a successor on it
+        feas[0, ::2, 0] = 0
+        feas[0, 1::4, 1] = 3
+        want, got = _route_tick_both(case)
+        _assert_ticks_equal(want, got, ("on cap", m))
+        kept = got[1].assign[0, ::2][mask[0, ::2]]
+        assert L[0] == L[3] and bool((kept == 0).all()), m
+        views = np.stack([_on_the_cap(v, (g, g + 3)) for g, v in
+                          enumerate(_views(40 + m, 4, m))])
+        want, got = _route_tick_both(case, torch.as_tensor(views).cuda())
+        _assert_ticks_equal(want, got, ("on cap fleet", m))
+
+
+def _views(seed, G, m):
+    """(G, m) per-wave views, each proxy's own: tenths with a few hot
+    servers a wave."""
+    rng = np.random.default_rng(seed + 100)
+    views = np.round(rng.random((G, m)) * 6, 1).astype(np.float32)
+    for g in range(G):  # each proxy sees its own hot servers
+        views[g, rng.integers(0, m, 4)] += 30.0
+    return views
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("policy", TICK_POLICIES)
+def test_cuda_route_tick_fleet_views_match_the_waves_one_at_a_time(policy):
     """Fleet routing: wave g routes on the (G, m) base view's row g
     alone, with no sends shared within the tick; the kernel's base-view
     mode against the plain loop fed the same views, in one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch.core import sim as tsim
     from repro_torch.kernels.midas_route import kernel
 
     steered = 0
     for case in TICK_CASES:
-        cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = \
-            _tick_case(*case)
-        G, m = keys.shape[0], st.L_hat.shape[0]
-        rng = np.random.default_rng(case[0] + 100)
-        views = np.round(rng.random((G, m)) * 6, 1).astype(np.float32)
-        for g in range(G):  # each proxy sees its own hot servers
-            views[g, rng.integers(0, m, 4)] += 30.0
-        views = torch.as_tensor(views).cuda()
-        out = {}
-        for impl in ("ref", "cuda"):
-            s = st._replace(policy=_clone(st.policy))
-            before = kernel.route_tick.launches
-            out[impl] = tsim._route_waves(cfg, policy, s, knobs, now, keys,
-                                          mask, feas, draws, impl, consts,
-                                          views)
-            assert kernel.route_tick.launches == before + (impl == "cuda")
-        torch.cuda.synchronize()
-        _assert_ticks_equal(out["ref"], out["cuda"], case)
-        steered += int(out["cuda"][1].stats.steered)
-    assert steered > 0
+        tc = _tick_case(*case, policy=policy)
+        G, m = tc[5].shape[0], tc[2].L_hat.shape[0]
+        views = torch.as_tensor(_views(case[0], G, m)).cuda()
+        before = kernel.route_tick.launches
+        want, got = _route_tick_both(tc, views)
+        assert kernel.route_tick.launches == before + 1
+        _assert_ticks_equal(want, got, case)
+        steered += int(got[1].stats.steered)
+    assert (steered > 0) == (policy != "power_of_d")
 
 
 @pytest.mark.requires_cuda
-def test_cuda_route_tick_in_a_cuda_graph():
+@pytest.mark.parametrize("policy", TICK_POLICIES)
+def test_cuda_route_tick_in_a_cuda_graph(policy):
     """Captured once, the tick replays the plain loop's result from the
-    same state (restored before each replay: the kernel updates the pin
-    tables and histories in place)."""
+    same state (restored before each replay: the midas kernel updates
+    the pin tables and histories in place)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core import sim as tsim
     from repro_torch.kernels.midas_route import kernel
 
-    case = _tick_case(*TICK_CASES[1])
+    case = _tick_case(*TICK_CASES[1], policy=policy)
     want, _ = _route_tick_both(case)
     cfg, policy, st, knobs, now, keys, mask, feas, draws, consts = case
     saved = _clone(st.policy)
@@ -325,17 +473,19 @@ def test_cuda_route_tick_in_a_cuda_graph():
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = kernel.route_tick.launches
-    with torch.cuda.graph(graph, stream=side):
+    with _recording() as calls, torch.cuda.graph(graph, stream=side):
         got = tsim._route_waves(cfg, policy, st, knobs, now, keys, mask,
                                 feas, draws, "cuda", consts)
-    assert kernel.route_tick.launches == before + 1
+    assert kernel.route_tick.launches == before + 1 and len(calls) == 1
     for _ in range(3):
         for x, y in zip(st.policy, saved):
             x.copy_(y)
         got[1].assign.zero_()
+        calls[0][1].zero_()
         graph.replay()
         torch.cuda.synchronize()
         _assert_ticks_equal(want, got, "graph replay")
+        _assert_views(case, want[1], calls[0])
 
 
 # (B, S, H, KV, D, window, softcap, dtype)
@@ -1161,10 +1311,9 @@ PLANE_CONFIGS = [
                          ids=lambda kw: ",".join(f"{k}={v}" for k, v in
                                                  kw.items()))
 def test_cuda_evaluation_plane_matches_its_plain_run(kw):
-    """chbl through route_select once a wave, and midas under the
-    ablations and the other control laws through route_tick once a
-    tick, bit for bit the plain run on the card (700 ticks: the slow
-    loop runs once)."""
+    """chbl, and midas under the ablations and the other control laws,
+    through route_tick once a tick, bit for bit the plain run on the
+    card (700 ticks: the slow loop runs once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core import make_workload
@@ -1182,12 +1331,7 @@ def test_cuda_evaluation_plane_matches_its_plain_run(kw):
         runs[impl] = tsim.run_ticks(cfg, st, wl.keys, wl.mask, wl.is_write)
         n = (kernel.route_select.launches - before[0],
              kernel.route_tick.launches - before[1])
-        if impl == "ref":
-            assert n == (0, 0)
-        elif kw["policy"] == "chbl":
-            assert n == (T * cfg.n_groups, 0)
-        else:
-            assert n == (0, T)
+        assert n == ((0, 0) if impl == "ref" else (0, T))
     (fa, oa), (fb, ob) = runs["cuda"], runs["ref"]
     for f in oa._fields:
         assert torch.equal(getattr(oa, f), getattr(ob, f)), f
@@ -1213,9 +1357,9 @@ MEMBER_CASES = [(64, (0,)), (4, (0, 1, 3))]
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("m,dead", MEMBER_CASES)
 def test_cuda_route_kernels_on_member_aware_feasible_sets(m, dead):
-    """route_tick and route_select (power_of_d, chbl) fed the feasible
-    sets of a membership fault, repeated entries included, equal their
-    plain versions bit for bit."""
+    """route_tick (midas, power_of_d, chbl) and route_select fed the
+    feasible sets of a membership fault, repeated entries included,
+    equal their plain versions bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.midas_route import kernel
@@ -1223,10 +1367,10 @@ def test_cuda_route_kernels_on_member_aware_feasible_sets(m, dead):
     member = np.ones(m, bool)
     member[list(dead)] = False
     steered = 0
-    for case in TICK_CASES[:4]:
+    for case, policy in itertools.product(TICK_CASES[:4], TICK_POLICIES):
         seed, G, Rg, f_max, pool, variant = case[:6]
         tc = _tick_case(seed, G, Rg, f_max, pool, variant, m=m,
-                        member=member)
+                        member=member, policy=policy)
         feas = tc[7]
         assert bool(torch.as_tensor(member).cuda()[feas.long()].all())
         if m - len(dead) < feas.shape[-1]:
@@ -1234,7 +1378,7 @@ def test_cuda_route_kernels_on_member_aware_feasible_sets(m, dead):
         before = kernel.route_tick.launches
         want, got = _route_tick_both(tc)
         assert kernel.route_tick.launches == before + 1
-        _assert_ticks_equal(want, got, (m, dead, case))
+        _assert_ticks_equal(want, got, (m, dead, case, policy))
         steered += int(got[1].stats.steered)
     for variant in ("plain", "ties", "infs"):
         feas, load, p50, sampled, tie, scal = _inputs(512, m, 4, m,
@@ -1260,8 +1404,8 @@ def test_cuda_route_kernels_on_member_aware_feasible_sets(m, dead):
 def test_cuda_faulted_engine_matches_its_plain_run(policy):
     """A crash, a storm and a partition under the fleet with fleet
     routing: the kernel run equals the plain run bit for bit on every
-    output and the final state; midas launches route_tick once a tick,
-    power_of_d route_select once a proxy's wave."""
+    output and the final state; both launch route_tick once a tick
+    (each proxy's wave on its own view) and never route_select."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core import make_workload
@@ -1287,8 +1431,7 @@ def test_cuda_faulted_engine_matches_its_plain_run(policy):
         runs[impl] = tsim.run_ticks(cfg, st, wl.keys, wl.mask, wl.is_write)
         n = (kernel.route_select.launches - before[0],
              kernel.route_tick.launches - before[1])
-        want = (0, 0) if impl == "ref" else (
-            (0, T) if policy == "midas" else (T * P, 0))
+        want = (0, 0) if impl == "ref" else (0, T)
         assert n == want, (impl, n)
     (fa, oa), (fb, ob) = runs["cuda"], runs["ref"]
     for f in oa._fields:

@@ -10,7 +10,14 @@ What rides on them is held too: the engine's ``pressure`` and the knob
 timelines ``deadband_pid`` integrates from it at m = 48, 72 and 100
 (outside the m = 8 of the other parity tests), and the Zipf tables and
 keys at the paper's N = 10**6.
+
+Torch runs on one intra-op thread here (the engine cases' small ops; the
+test workers' other processes take the cores, and torch's threads then
+contend, ~3x slower), and the reference's workload grid is made once for
+both controllers of an (m, T).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -36,6 +43,21 @@ FIELDS = ("queue_timeline", "arrivals", "lat_pred", "d_timeline",
 LONG = (1000, 4097, 10_000, 65_537, 10**6)
 _SUM = jax.jit(jnp.sum)
 _IMBALANCE = jax.jit(jtelemetry.imbalance)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this file's small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _bursty(m, T):
+    """The reference's ``bursty`` grid at (m, T), seed 1, N = 4096."""
+    return jmake("bursty", T=T, m=m, seed=1, N=4096)
 
 
 def _vectors(n, seed, k):
@@ -75,7 +97,7 @@ def test_imbalance_is_the_jitted_reference_bit_for_bit(m):
 @pytest.mark.parametrize("controller", ("hysteresis", "deadband_pid"))
 def test_engine_pressure_and_knobs_bitwise_at_wide_m(m, T, controller):
     """Every timeline, pressure and the knobs included, bit for bit."""
-    wl = jmake("bursty", T=T, m=m, seed=1, N=4096)
+    wl = _bursty(m, T)
     kw = dict(m=m, N=4096, policy="midas", middleware=("cache",),
               controller=controller)
     want = jsimulate(JConfig(**kw), wl, do_warmup=False)
