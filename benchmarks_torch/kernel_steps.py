@@ -44,7 +44,13 @@ Variants:
   of f_max 0.25 (``dispatch_steer``; in the other checkout, if it has
   none, ``ref.steer_from_candidates`` in PyTorch), and both passes of
   f_max 0.25 one after the other, under a skewed load and under the
-  serving path's balanced one, each also called from Python.
+  serving path's balanced one, each also called from Python;
+- ``dispatch_steer``'s quantile select at T = 32 to 4096
+  (``STEER_SELECT_T``) on a load under which most tokens' benefits
+  clear the floor (``steer_hot``: the select runs in most slots), by
+  each path (``SteerPlan``): shuffles in one warp (T <= 32), counting
+  ranks, the radix select; beyond the register kernel's tokens only
+  the radix select runs.
 
 Some steps are copies of this checkout's source with one part put back
 as it was, built into ``build/`` (``PATCHES``): ``decode_attention``
@@ -239,6 +245,22 @@ class SelectPlan:
     def __exit__(self, *exc):
         self.kernel.select_plan = self.saved
         self.kernel._plan.cache_clear()
+
+
+class SteerPlan:
+    """Within the block, the midas_route wrapper ``kernel`` runs
+    ``dispatch_steer``'s select with ``plan`` (warp, count_max) at every
+    T."""
+
+    def __init__(self, kernel, plan):
+        self.kernel, self.plan = kernel, plan
+
+    def __enter__(self):
+        self.saved = self.kernel.steer_plan
+        self.kernel.steer_plan = lambda T: self.plan
+
+    def __exit__(self, *exc):
+        self.kernel.steer_plan = self.saved
 
 
 class Swap:
@@ -473,6 +495,18 @@ def time_dispatch(torch, km, ref, shape, label, plan=None):
                for name, fn in fns.items()]
     if plan is not None:
         return out
+    return out + time_steer_pass2(torch, km, ref, shape, label)
+
+
+def time_steer_pass2(torch, km, ref, shape, label):
+    """``km``'s pass 2 at f_max 0.25 (``dispatch_steer``, or the plain
+    version where the checkout has none) and both passes, at ``shape``
+    under a skewed load and under the serving path's balanced one, each
+    checked against the plain version first."""
+    T, E, k, d = shape
+    kd = k + d
+    logits, load = cs.dispatch_inputs(torch, T, E, 7, "random")
+    out = []
     cand, vals = km.dispatch_candidates(logits, kd)
     for tag, ld in (("skewed load", load),
                     ("balanced load", torch.ones_like(load))):
@@ -499,6 +533,76 @@ def time_dispatch(torch, km, ref, shape, label, plan=None):
     return out
 
 
+# dispatch_steer's select at these tokens (the crossover's tokens
+# between 256 and 512)
+STEER_SELECT_T = (32, 128, 256, 320, 384, 448, 512, 1024, 4096)
+EVERY = 1 << 30  # count_max: count ranks at any T
+
+
+def steer_hot(torch, T, E, k, seed):
+    """Gate logits that rank experts 0, 1, ... about alike for every
+    token, within the gate slack, and a load hot on the first k: most
+    tokens' benefits clear the floor, so the quantile's select runs in
+    most slots (``tests/test_torch_kernels_cuda.py``'s "hot")."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = torch.arange(E, device="cuda")
+    logits = -0.05 * e[None, :] + 0.02 * torch.randn(
+        (T, E), generator=g, device="cuda")
+    load = torch.where(
+        e < k, 6.0 + torch.randn(E, generator=g, device="cuda").abs(),
+        torch.randn(E, generator=g, device="cuda").abs() * 3.0)
+    return logits.contiguous(), load
+
+
+def time_steer_select(torch, km, ref, T, label, plan=None):
+    """``km``'s dispatch_steer at f_max 0.25 on ``steer_hot`` inputs of
+    T tokens (E 128, top-8, d 2) under ``plan`` (None: the wrapper's),
+    checked against the plain version first."""
+    E, k, d = 128, 8, 2
+    logits, load = steer_hot(torch, T, E, k, T)
+    cand, vals = km.dispatch_candidates(logits, k + d)
+    with SteerPlan(km, plan) if plan else nullcontext():
+        got = km.dispatch_steer(cand, vals, load, k, f_max=F_MAX)
+        want = ref.steer_from_candidates(cand, vals, load, k, f_max=F_MAX)
+        err = (got[1] - want[1]).abs().max().item()
+        cs.check(torch.equal(got[0], want[0])
+                 and torch.equal(got[2], want[2]) and err <= cs.W_TOL,
+                 f"{label} T={T}: dispatch_steer differs")
+
+        def fn():
+            return km.dispatch_steer(cand, vals, load, k, f_max=F_MAX)
+        return dict(kernel=f"dispatch_steer select, f_max {F_MAX}, most "
+                    f"benefits over the floor", shape=(T, E, k, d),
+                    variant=label, ms=cs.device_ms(torch, [fn], cs.N_GRAPH),
+                    host_ms=cs.host_ms(torch, fn), max_abs_err=err,
+                    steered=int(got[2].sum()))
+
+
+def steer_select_turn(torch, km, ref, who):
+    """One turn of ``dispatch_steer``'s select paths: the other
+    checkout's kernel as it plans, or this one's by each path."""
+    rows = []
+    for T in STEER_SELECT_T:
+        if who != "this" or not hasattr(km, "steer_plan"):
+            rows.append(time_steer_select(torch, km, ref, T,
+                                          f"{who}: {PARENT}"))
+            continue
+        if km.steer_path(T) != "registers":
+            rows.append(time_steer_select(
+                torch, km, ref, T, "this: shared-memory kernel, radix "
+                "select"))
+            continue
+        plans = {"counting ranks": (False, EVERY),
+                 "radix select": (False, 0)}
+        if T <= 32:
+            plans["shuffles in one warp"] = (True, EVERY)
+        plans["the wrapper's plan"] = None
+        for label, plan in plans.items():
+            rows.append(time_steer_select(torch, km, ref, T,
+                                          f"this: {label}", plan))
+    return rows
+
+
 def dispatch_turn(torch, km, ref, who):
     rows = []
     for shape in cs.MR_TIMED:
@@ -514,7 +618,7 @@ def dispatch_turn(torch, km, ref, who):
                 continue
             rows += time_dispatch(torch, km, ref, shape,
                                   f"this: {plan} rows a block", plan)
-    return rows
+    return rows + steer_select_turn(torch, km, ref, who)
 
 
 def main() -> int:
@@ -582,6 +686,7 @@ def main() -> int:
     rows = []
     for name in args.only:  # built above; the copies in parallel
         loader(mods["this"][name], name)()
+    patch_mods = {"decode_attention": da, "chunk_scan": sc, "dispatch": mr}
     jobs = {key: (da if key[0] == "decode_attention" else sc, [edit])
             for key, edit in PATCHES.items() if key[0] in args.only}
     if "flash_attention" in args.only:

@@ -43,9 +43,11 @@ Phases:
    shapes (MusicGen's 32 heads over 32 KV heads at D = 64, LLaVA's 32
    over 8 at D = 128 with 1088 prompt positions); ``dispatch_steer`` against
    ``ref.steer_from_candidates`` on the same candidates (f_max below 1,
-   0 and 1, one token, 5000 tokens), the whole dispatch at both f_max
-   called from Python, and the launch floor (a one-element op in the
-   same graph replay);
+   0 and 1, one token, the edges of its register kernel and of its
+   select's paths, k + d = 16 at E = 1024, 5000 tokens; infinite loads,
+   and loads under which its select runs), the whole dispatch at both
+   f_max called from Python, and the launch floor (a one-element op in
+   the same graph replay);
 3. the simulator at full width (m = 64 servers, N = 10**6 keys, V = 64
    vnodes, 512 request slots per tick, T = 1200 ticks) under the midas
    policy, counting one ``route_tick`` launch a tick and no other,
@@ -1199,20 +1201,36 @@ MR_SHAPES = [
 ]
 # dispatch_steer beyond MR_SHAPES' f_max < 1 cases: f_max 0, the margin
 # rule, the most tokens whose state stays in shared memory, and a batch
-# whose state leaves it (kernel.STEER_SMEM_T)
+# whose state leaves it (kernel.STEER_SMEM_T); the register kernel's
+# edges: one warp (31, 32) and a block (33), its select's crossover
+# (kernel.STEER_COUNT_MAX = 320 tokens) +- 1, its last token (512) and
+# the shared-memory kernel's first (513, 1025), k + d = 16 at E = 1024
 STEER_EXTRA = [(300, 16, 4, 2, 0.0), (300, 16, 4, 2, 1.0),
                (1, 128, 8, 2, 0.0), (4096, 128, 8, 2, 0.25),
-               (5000, 128, 8, 2, 0.25)]
+               (5000, 128, 8, 2, 0.25), (31, 128, 8, 2, 0.25),
+               (32, 128, 8, 2, 0.25), (33, 128, 8, 2, 0.5),
+               (319, 128, 8, 2, 0.25), (320, 128, 8, 2, 0.25),
+               (321, 128, 8, 2, 0.25), (513, 128, 8, 2, 0.25),
+               (1025, 128, 8, 2, 0.25), (512, 1024, 12, 4, 0.25),
+               (200, 1024, 15, 1, 0.9)]
+# dispatch_steer's inputs: MR_SHAPES' three, infinite loads, and loads
+# under which most benefits clear the floor (its select runs)
+STEER_VARIANTS = ("random", "ties", "balanced", "infs", "hot", "hot ties")
 # timed: qwen3-moe's decode token (the JSON row) and prefill
 MR_TIMED = [(1, 128, 8, 2), (512, 128, 8, 2)]
 MR_SERVE = (1, 128, 8, 2)
 PARENT_FMAX_PATH_MS = "4.0-6.5 ms"  # the f_max 0.25 dispatch, parent tree
 
 
-def dispatch_inputs(torch, T, E, seed, variant):
+def dispatch_inputs(torch, T, E, seed, variant, k=8):
     """Gate logits (T, E) and load (E,) on the card: skewed loads, so
     tokens steer; ``ties`` rounds both to a few values; ``balanced``
-    is the serving path's load of ones, under which nothing steers."""
+    is the serving path's load of ones, under which nothing steers (every
+    benefit -inf); ``infs`` the skewed load with every fifth expert's
+    infinite; ``hot`` ranks experts 0, 1, ... about alike for every
+    token, within the gate slack, with the load hot on the first k, so
+    that most benefits clear the floor and dispatch_steer's quantile
+    selects; ``hot ties`` rounds that load."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn((T, E), generator=g, device="cuda") * 2.0
     load = torch.randn((E,), generator=g, device="cuda").abs() * 3.0
@@ -1221,6 +1239,14 @@ def dispatch_inputs(torch, T, E, seed, variant):
         load = torch.round(load)
     if variant == "balanced":
         load = torch.ones_like(load)
+    if variant == "infs":
+        load[::5] = float("inf")
+    if variant.startswith("hot"):
+        e = torch.arange(E, device="cuda")
+        logits = -0.05 * e[None, :] + 0.02 * logits
+        load = torch.where(e < k, 6.0 + load / 3.0, load)
+        if variant == "hot ties":
+            load = torch.round(load)
     return logits.contiguous(), load
 
 
@@ -1232,9 +1258,10 @@ def dispatch_bound(T, E, k, kd, name):
     row; fused: the logits and the load in, experts int32, weights
     float32 and one steered byte per slot out, the same compares;
     steer: the candidates and the load in, the fused kernel's outputs
-    out, the k·T·4 key passes of its radix select."""
+    out, 8·T·(k+d) + 4·E + 9·T·k bytes (its arithmetic, a few
+    operations a slot and token, is no bound)."""
     if name == "dispatch_steer":
-        byts, ops = 8 * T * kd + 4 * E + 9 * T * k, k * T * 4
+        byts, ops = 8 * T * kd + 4 * E + 9 * T * k, 0
     elif name == "dispatch_fused":
         byts, ops = 4 * T * E + 4 * E + 9 * T * k, T * E * kd
     else:
@@ -1354,9 +1381,9 @@ def phase_dispatch_steer(torch, kernel, ref, err):
     cases = steered = 0
     shapes = [s for s in MR_SHAPES if s[4] < 1.0] + STEER_EXTRA
     for (T, E, k, d, f_max), variant in [
-            (shape, v) for shape in shapes
-            for v in ("random", "ties", "balanced")]:
-        logits, load = dispatch_inputs(torch, T, E, T + E + k + d, variant)
+            (shape, v) for shape in shapes for v in STEER_VARIANTS]:
+        logits, load = dispatch_inputs(torch, T, E, T + E + k + d, variant,
+                                       k)
         what = f"(T, E, k, d, f_max) = {(T, E, k, d, f_max)} {variant}"
         cand, vals = kernel.dispatch_candidates(logits, k + d)
         got = kernel.dispatch_steer(cand, vals, load, k, f_max=f_max)
@@ -1370,16 +1397,21 @@ def phase_dispatch_steer(torch, kernel, ref, err):
         check(w_err <= W_TOL, f"dispatch_steer {what}: weights differ by "
               f"{w_err}")
         err["dispatch_steer"] = max(err["dispatch_steer"], w_err)
-        if T == 1 or f_max <= 0.0 or variant == "balanced":
+        if (T == 1 and variant != "infs") or f_max <= 0.0 or \
+                variant == "balanced":
             check(not bool(got[2].any()), f"dispatch_steer {what}: steered")
         steered += int(got[2].sum())
         cases += 1
     check(steered > 0, "no dispatch_steer case steered")
     say(f"[2] dispatch_steer: {cases} cases (MR shapes at f_max < 1, f_max "
-        f"0 and 1, T = 1, T = 5000 beyond shared memory) equal to "
+        f"0 and 1, T = 1, one warp's and a block's edges, the select's "
+        f"crossover +- 1, the register kernel's last token and the "
+        f"shared-memory kernel's first, k + d = 16 at E = 1024, T = 5000 "
+        f"beyond shared memory; {', '.join(STEER_VARIANTS)}) equal to "
         f"ref.steer_from_candidates on the same candidates on experts and "
-        f"steered ({steered} slots steered; none at T = 1, f_max 0 or "
-        f"balanced load); weights within {err['dispatch_steer']:.3g}")
+        f"steered ({steered} slots steered; none at T = 1 (finite loads), "
+        f"f_max 0 or balanced load); weights within "
+        f"{err['dispatch_steer']:.3g}")
 
 
 # ---------------------------------------------------------------------------

@@ -46,32 +46,79 @@
 // shared memory; lane s writes slot s and the softmax is a warp
 // reduction.
 //
-// dispatch_steer is one block: the slots are sequential over the batch.
-// Each thread owns the tokens tid, tid + blockDim, ...; their benefit
-// and used alternates live in shared memory up to kSteerSmemT tokens,
-// beyond that in a scratch buffer of the wrapper's.  The quantile needs
-// two order statistics s[low] and s[high] of the benefits (numpy
-// float32 positions and weights from ref.quantile_plan, computed by
-// the wrapper).  They are found by an exact radix select over the
-// order-preserving 32-bit key of the float, both ranks in the same
-// passes: up to 4 passes of 8-bit digits through block-wide 256-bin
-// histograms in shared memory (lanes with the same bin add once),
-// scanned by one warp, stopping once one key is left for each rank, so
-// one token takes no pass.  A slot whose benefits all lie at or below the floor
-// needs no select: the threshold is never below the floor.  The select
-// returns elements of the vector, the values of torch.sort, up to the
-// sign of a zero, which no steer can see.  Then
+// dispatch_steer is one block: the slots run in order over the whole
+// batch, since slot i's quantile ranks every token after slots < i have
+// marked their alternates used.  Up to kRegT = 512 tokens a thread owns
+// a token and keeps it in registers across the k slots
+// (dispatch_steer_kernel): its k + d ids and logits, each loaded once,
+// every load issued before the first use, their loads gathered once
+// from the load staged in shared memory (the wide instantiation reads
+// them there in each slot), the used alternates, and each slot's chosen
+// expert and logit written over its primary's.  The softmax runs on
+// those registers and each output row is written once (16-byte stores
+// where k is a multiple of 4).  Nothing is read back from device
+// memory.  The margin and none modes have no barrier in the slot loop.
+// The quantile needs s[low] and s[high] of the batch's benefits
+// (non-finite ones counted as -1e9; numpy float32 positions and weights
+// from ref.quantile_plan, computed by the wrapper), then
 //   q = float(double(hi) * w_high + double(lo * w_low)),
 // as core.xla.fma rounds the reference's fused interpolation, clamped
-// below to float32(dL - 1e-9).
+// below to floor = float32(dL - 1e-9).  If s[high] < floor, q <= floor
+// (the interpolation of lo <= hi < floor rounds to at most the floor;
+// tests/test_torch_dispatch_design.py holds it on values ulps from the
+// floor), so the threshold is the floor: only the G benefits at or
+// above the floor are ranked, at ranks T - G and up, and a slot with
+// G < T - high selects nothing.  A stable rank is counted, #{v_j < v_t}
+// + #{v_j == v_t, j before t}, which is torch.sort's order, -0.0 and
+// +0.0 alike:
+//   - T <= 32, one warp (warp_select): the values go round by 32
+//     shuffles, the ballots of rank low and high name the lanes to
+//     read; no barrier.  At T = 1, s[0] is the token's own value;
+//   - up to count_max tokens (block_select): one barrier counts G
+//     (__syncthreads_count); a slot that selects has each warp write
+//     its values at or above the floor first (ballot prefix) and +inf
+//     after into its 32 slots of shared memory, and the largest key
+//     below the floor; one barrier; each ranked thread counts over
+//     every warp's slots in float4s; the threads of rank low and high
+//     write their values; one barrier.  When s[low] lies below the
+//     floor (G = T - high = T - low - 1), it is the largest value
+//     below it, from the warps' maxima;
+//   - beyond count_max tokens, select_digits.
+// Beyond kRegT tokens (dispatch_steer_smem_kernel) each thread owns
+// the tokens tid, tid + 1024, ...; their benefit and used alternates
+// live in shared memory up to kSteerSmemT tokens, beyond that in a
+// scratch buffer of the wrapper's, and the quantile comes from
+// select_digits once a benefit exceeds the floor: an exact radix select
+// over the order-preserving 32-bit key of the float, both ranks in the
+// same passes, up to 4 passes of 8-bit digits through block-wide
+// 256-bin histograms in shared memory, stopping once one key is left
+// for each rank.  It returns elements of the vector, the values of
+// torch.sort, up to the sign of a zero, which no steer can see.
 //
 // Bound: a row reads E float32 logits and writes (k+d)·8 or k·9 bytes,
 // and the selection is E·E compares a row; at the serving shape (E =
 // 128, k + d = 10) bytes bind (0.09 µs at T = 512), and at one decode
 // token every kernel is its own launch latency.  dispatch_steer moves
-// T·(k+d)·8 + E·4 + T·k·9 bytes; its time is the dependent chain of
-// the slots in order (at one token a thread's loads of the candidates,
-// a barrier and the outputs; at 512 tokens mostly the select's passes).
+// 8·T·(k+d) + 4·E + 9·T·k bytes (0.0002 µs at T = 1, 0.0234 µs at T =
+// 512 at 3.35 TB/s); its time is the launch (a one-element op takes
+// 1.025 µs in a graph replay) and the dependent chain of the k slots.
+// NVIDIA H100 80GB HBM3, 700 W: 3.24 µs at one decode token and 6.51
+// µs at a 512-token prompt (chip_smoke.py phase 2; 7.96 and 51.80 for
+// the shared-memory design before, benchmarks_torch/kernel_steps.py).
+// Registers (-Xptxas -v, sm_90a, both register kernels at
+// __launch_bounds__(512, 1), up to 128 a thread): 88 for k <= 8, d <= 2
+// and 127 for k + d = 16, 0 bytes spilled (8-byte stack frames: the
+// calls of warp_select and block_select).  Hence kRegT = 512: at 1024
+// threads a thread may hold 64 registers, too few for either.
+// Crossover: counting ranks beats select_digits up to 320 tokens when
+// most benefits clear the floor (kernel_steps.py: 34.7 against 37.8 µs
+// at 320, 40.2 against 38.4 at 384), so the wrapper's STEER_COUNT_MAX
+// is 320.  One block: the serving path sends at most 512 tokens, which
+// one block holds, and its time there is the launch and the k slots; a
+// thread-block cluster would add a cluster barrier to each slot's
+// batch-wide quantile, and only batches beyond 512 tokens would use it
+// (68.0 µs at 1024 and 194.7 at 4096 tokens on the shared-memory
+// kernel, most benefits over the floor), which no serving path sends.
 //
 // Build with -fmad=false and without fast math: experts and steered
 // must equal the plain PyTorch version bit for bit, with the same
@@ -272,14 +319,27 @@ struct SteerArgs {
   const float* vals;
   const float* load;
   int32_t* experts;
-  float* weights;  // the chosen logits until the softmax
+  float* weights;  // the smem kernel: the chosen logits until the softmax
   uint8_t* steered;
   float* scratch;  // 2·T words beyond kSteerSmemT tokens
   int T, E, k, d, mode, low, high;
   float w_high, w_low, dl, slack, floor;
 };
 
-// per-token state word: used alternates << 5 | has << 4 | best
+// The threshold max(q, floor) from the order statistics lo = s[low] and
+// hi = s[high]: lo * w_low in float32, then the product and the sum in
+// double, rounded to float32.
+__device__ __forceinline__ float threshold(float lo, float hi, float w_high,
+                                           float w_low, float floor_) {
+  const float lw = lo * w_low;
+  const float q = static_cast<float>(static_cast<double>(hi) *
+                                         static_cast<double>(w_high) +
+                                     static_cast<double>(lw));
+  return q < floor_ ? floor_ : q;
+}
+
+// per-token state word of dispatch_steer_smem_kernel: used alternates
+// << 5 | has << 4 | best
 constexpr int kUsedShift = 5;
 constexpr unsigned kHas = 16u;
 
@@ -379,7 +439,10 @@ __device__ void select_digits(const float* ben, int T, int low, int high,
   out[1] = sm.key[1];
 }
 
-__global__ void __launch_bounds__(kMaxThreads) dispatch_steer_kernel(
+// Beyond the register kernel's tokens: each thread owns the tokens tid,
+// tid + blockDim, ..., whose benefit and state word live in shared
+// memory (or the scratch buffer), re-reading the candidates each slot.
+__global__ void __launch_bounds__(kMaxThreads) dispatch_steer_smem_kernel(
     SteerArgs a) {
   __shared__ __align__(16) DigitSmem sm;
   extern __shared__ float4 s_mem[];
@@ -413,12 +476,8 @@ __global__ void __launch_bounds__(kMaxThreads) dispatch_steer_kernel(
     if (a.mode == kQuantile && __syncthreads_or(above)) {
       uint32_t key[2];
       select_digits(ben, T, a.low, a.high, sm, key);
-      const float lo = key_value(key[0]), hi = key_value(key[1]);
-      const float lw = lo * a.w_low;
-      const float q = static_cast<float>(static_cast<double>(hi) *
-                                             static_cast<double>(a.w_high) +
-                                         static_cast<double>(lw));
-      thr = q < a.floor ? a.floor : q;
+      thr = threshold(key_value(key[0]), key_value(key[1]), a.w_high,
+                      a.w_low, a.floor);
     }
     for (int t = tid; t < T; t += nt) {
       const size_t row = static_cast<size_t>(t) * kd;
@@ -458,6 +517,293 @@ __global__ void __launch_bounds__(kMaxThreads) dispatch_steer_kernel(
     for (int s = 0; s < kMaxKD; ++s)
       if (s < k) w[s] = v[s] / sum;
   }
+}
+
+// Shared memory of the register kernel's select, for up to NT tokens.
+// (seg first: it is read in float4s, and the block aligns it to 16)
+template <int NT>
+struct RegSmem {
+  float seg[NT];  // warp w's values at or above the floor first (token
+                  // order), +inf after, at 32·w
+  float all[NT];  // each token's quantile value, for select_digits
+  DigitSmem dig;
+  uint32_t kmax[NT / 32];  // the largest key below the floor in warp w
+  float res[2];            // s[low] and s[high]
+};
+
+// The block's s[low] and s[high] once G values lie at or above the floor
+// and G >= T - high, as the threshold max(q, floor).  Every thread calls
+// it.  Out of line: one copy of this rarer path, so that the unrolled
+// slots of the register kernel stay close together in the instruction
+// cache.
+template <int NT>
+__device__ __noinline__ float block_select(float f, bool ge, bool mine,
+                                           int G, int count_max, int T,
+                                           int low, int high, float w_high,
+                                           float w_low, float floor_,
+                                           RegSmem<NT>& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned bal = __ballot_sync(kFull, ge);
+  const unsigned before = (1u << lane) - 1u;  // the lanes below this one
+  const int cw = __popc(bal);
+  const int pos = ge ? __popc(bal & before) : cw + __popc(~bal & before);
+  sm.seg[32 * w + pos] = ge ? f : INFINITY;
+  sm.all[tid] = f;
+  const uint32_t kmax =
+      __reduce_max_sync(kFull, mine && !ge ? order_key(f) : 0u);
+  if (lane == 0) sm.kmax[w] = kmax;
+  __syncthreads();
+  if (T > count_max) {
+    uint32_t key[2];
+    select_digits(sm.all, T, low, high, sm.dig, key);
+    return threshold(key_value(key[0]), key_value(key[1]), w_high, w_low,
+                     floor_);
+  }
+  if (ge) {  // the stable rank among the values at or above the floor
+    // every warp's 32 slots in float4s (+inf past its count is never
+    // counted): earlier warps' equal values count, later warps' do not,
+    // this warp's by position; four counts, so that no chain of adds
+    // runs through every slot
+    int r0 = 0, r1 = 0, r2 = 0, r3 = 0;
+    const float4* seg = reinterpret_cast<const float4*>(sm.seg);
+    for (int v = 0; v < w; ++v) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = seg[8 * v + j];
+        r0 += x.x <= f;
+        r1 += x.y <= f;
+        r2 += x.z <= f;
+        r3 += x.w <= f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 x = seg[8 * w + j];
+      r0 += (x.x < f) | ((x.x == f) & (4 * j < pos));
+      r1 += (x.y < f) | ((x.y == f) & (4 * j + 1 < pos));
+      r2 += (x.z < f) | ((x.z == f) & (4 * j + 2 < pos));
+      r3 += (x.w < f) | ((x.w == f) & (4 * j + 3 < pos));
+    }
+    for (int v = w + 1; v < nw; ++v) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = seg[8 * v + j];
+        r0 += x.x < f;
+        r1 += x.y < f;
+        r2 += x.z < f;
+        r3 += x.w < f;
+      }
+    }
+    const int rank = T - G + r0 + r1 + r2 + r3;
+    if (rank == low) sm.res[0] = f;
+    if (rank == high) sm.res[1] = f;
+  }
+  if (G < T - low && tid == 0) {  // s[low]: the largest below the floor
+    uint32_t m = 0u;
+    for (int v = 0; v < nw; ++v) m = max(m, sm.kmax[v]);
+    sm.res[0] = key_value(m);
+  }
+  __syncthreads();
+  return threshold(sm.res[0], sm.res[1], w_high, w_low, floor_);
+}
+
+// One warp's s[low] and s[high] (T <= 32, a lane a token) once G of
+// them lie at or above the floor and G >= T - high, as the threshold
+// max(q, floor): stable ranks by 32 shuffles, no barrier.  Out of line,
+// as block_select.
+__device__ __noinline__ float warp_select(float f, bool ge, bool mine,
+                                          int G, int T, int low, int high,
+                                          float w_high, float w_low,
+                                          float floor_) {
+  const int lane = threadIdx.x & 31;
+  const float key = ge ? f : INFINITY;  // +inf: not ranked
+  int r0 = 0, r1 = 0;
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const float v0 = __shfl_sync(kFull, key, j);
+    const float v1 = __shfl_sync(kFull, key, j + 1);
+    r0 += (v0 < f) | ((v0 == f) & (j < lane));
+    r1 += (v1 < f) | ((v1 == f) & (j + 1 < lane));
+  }
+  const int rank = T - G + r0 + r1;
+  const float hi = __shfl_sync(
+      kFull, f, __ffs(__ballot_sync(kFull, ge && rank == high)) - 1);
+  const unsigned at_low = __ballot_sync(kFull, ge && rank == low);
+  // s[low] below the floor (G = T - low - 1): the largest value there
+  const uint32_t kmax =
+      __reduce_max_sync(kFull, mine && !ge ? order_key(f) : 0u);
+  const float lo = at_low ? __shfl_sync(kFull, f, __ffs(at_low) - 1)
+                          : key_value(kmax);
+  return threshold(lo, hi, w_high, w_low, floor_);
+}
+
+// Slot i's threshold max(q, floor) at f_max < 1, the same in every
+// thread, from each thread's benefit b (its token's; -inf past T).
+// Every thread of the block calls it.
+template <int NT>
+__device__ __forceinline__ float reg_threshold(float b, bool mine,
+                                               const SteerArgs& a,
+                                               int count_max, bool warp,
+                                               RegSmem<NT>& sm) {
+  const int T = a.T;
+  const float f = isfinite(b) ? b : -1e9f;  // what the quantile ranks
+  const bool ge = mine && f >= a.floor;
+  if (!warp) {  // one barrier counts G; a slot that selects waits again
+    const int G = __syncthreads_count(ge);
+    if (G < T - a.high) return a.floor;  // s[high] < floor: q <= floor
+    return block_select(f, ge, mine, G, count_max, T, a.low, a.high,
+                        a.w_high, a.w_low, a.floor, sm);
+  }
+  // T = 1: s[0] is the token's value f, and with quantile_plan(1, q) =
+  // (0, 0, 0, 1) q = f exactly (lanes past the token never steer)
+  if (T == 1) return ge ? f : a.floor;
+  const int G = __popc(__ballot_sync(kFull, ge));
+  if (G < T - a.high) return a.floor;  // s[high] < floor: q <= floor
+  return warp_select(f, ge, mine, G, T, a.low, a.high, a.w_high, a.w_low,
+                     a.floor);
+}
+
+// Up to NT tokens, one a thread, each token's state in registers across
+// the k slots: k <= KMAX primaries and d <= DMAX alternates, the slots
+// unrolled so that every register index is known.
+template <int KMAX, int DMAX, int NT>
+__global__ void __launch_bounds__(NT, 1)
+    dispatch_steer_kernel(SteerArgs a, int count_max, int warp) {
+  __shared__ __align__(16) RegSmem<NT> sm;
+  extern __shared__ float4 s_mem[];
+  float* s_load = reinterpret_cast<float*>(s_mem);  // E
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int k = a.k, d = a.d, kd = a.k + a.d;
+  const bool mine = tid < a.T;
+
+  // the token's candidates, every load issued before the first use
+  int pid[KMAX], aid[DMAX];
+  float pv[KMAX], av[DMAX], pl[KMAX], al[DMAX];
+  const size_t row = static_cast<size_t>(mine ? tid : 0) * kd;
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) {
+    const bool in = mine && s < k;
+    pid[s] = in ? a.cand[row + s] : 0;
+    pv[s] = in ? a.vals[row + s] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < DMAX; ++j) {
+    const bool in = mine && j < d;
+    aid[j] = in ? a.cand[row + k + j] : 0;
+    av[j] = in ? a.vals[row + k + j] : 0.0f;
+  }
+  for (int j = tid; j < a.E; j += nt) s_load[j] = a.load[j];
+  const bool block = a.mode == kQuantile && !warp;
+  if (block)  // select_digits finds hist[0] zero
+    for (int j = tid; j < 2 * kBins; j += nt) (&sm.dig.hist[0][0][0])[j] = 0;
+  __syncthreads();
+  // up to 8 primaries and 2 alternates their loads stay in registers
+  // too; the wide instantiation reads them from shared memory in each
+  // slot, or it would spill
+  constexpr bool kKeep = KMAX <= 8 && DMAX <= 2;
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) pl[s] = kKeep ? s_load[pid[s]] : 0.0f;
+#pragma unroll
+  for (int j = 0; j < DMAX; ++j) al[j] = kKeep ? s_load[aid[j]] : 0.0f;
+
+  unsigned used = 0u, flags = 0u;  // alternates taken; slots steered
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    if (i >= k) continue;  // k is the same in every thread
+    // the least-loaded feasible unused alternate (argmin: the first on
+    // ties), as slot_benefit picks it
+    const float lp = kKeep ? pl[i] : s_load[pid[i]];
+    const float lim_l = lp - a.dl, lim_v = pv[i] - a.slack;
+    float best_l = INFINITY, bv = av[0];
+    int best = 0, be = aid[0];
+    bool has = false;
+#pragma unroll
+    for (int j = 0; j < DMAX; ++j) {
+      if (j < d) {
+        const float la = kKeep ? al[j] : s_load[aid[j]];
+        const bool ok = !((used >> j) & 1u) && la <= lim_l && av[j] >= lim_v;
+        const float masked = ok ? la : INFINITY;
+        if (masked < best_l) {
+          best = j;
+          best_l = masked;
+          bv = av[j];
+          be = aid[j];
+        }
+        has = has || ok;
+      }
+    }
+    has = has && mine;
+    const float b = has ? lp - best_l : -INFINITY;
+    bool steer = false;
+    if (a.mode == kMargin) {
+      steer = has && b >= a.dl;
+    } else if (a.mode == kQuantile) {  // every thread: barriers inside
+      const float thr = reg_threshold(b, mine, a, count_max, warp != 0, sm);
+      steer = has && b > thr;
+    }
+    if (steer) {
+      used |= 1u << best;
+      flags |= 1u << i;
+      pid[i] = be;
+      pv[i] = bv;
+    }
+  }
+  if (!mine) return;
+
+  // softmax over the k chosen logits, as dispatch_fused, but one
+  // division: weights within an ulp or two of ex / sum
+  float mx = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) mx = fmaxf(mx, s < k ? pv[s] : -INFINITY);
+  float sum = 0.0f;
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) {
+    pv[s] = s < k ? expf(pv[s] - mx) : 0.0f;
+    sum += pv[s];
+  }
+  const float inv = 1.0f / sum;
+#pragma unroll
+  for (int s = 0; s < KMAX; ++s) pv[s] *= inv;
+
+  // the row once: 16-byte stores where k is a multiple of 4 (rows then
+  // start 16-byte aligned), 4-byte ones else
+  const size_t o = static_cast<size_t>(tid) * k;
+  if ((k & 3) == 0) {
+#pragma unroll
+    for (int s = 0; s + 3 < KMAX; s += 4)
+      if (s < k) {
+        const unsigned f4 = (flags >> s) & 15u;
+        *reinterpret_cast<int4*>(a.experts + o + s) =
+            make_int4(pid[s], pid[s + 1], pid[s + 2], pid[s + 3]);
+        *reinterpret_cast<float4*>(a.weights + o + s) =
+            make_float4(pv[s], pv[s + 1], pv[s + 2], pv[s + 3]);
+        *reinterpret_cast<uint32_t*>(a.steered + o + s) =
+            (f4 & 1u) | ((f4 & 2u) << 7) | ((f4 & 4u) << 14) |
+            ((f4 & 8u) << 21);
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < KMAX; ++s)
+      if (s < k) {
+        a.experts[o + s] = pid[s];
+        a.weights[o + s] = pv[s];
+        a.steered[o + s] = static_cast<uint8_t>((flags >> s) & 1u);
+      }
+  }
+}
+
+// The register kernel's instantiations (KMAX, DMAX, kRegT threads).
+constexpr int kRegT = 512;
+
+template <int KMAX, int DMAX, int NT>
+int launch_reg(const SteerArgs& a, int count_max, int warp,
+               cudaStream_t stream) {
+  const int threads = round_up(a.T, 32);
+  const size_t smem = static_cast<size_t>(a.E) * sizeof(float);
+  dispatch_steer_kernel<KMAX, DMAX, NT><<<1, threads, smem, stream>>>(
+      a, count_max, warp && threads == 32);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -506,13 +852,18 @@ extern "C" int dispatch_fused_launch(const void* logits, const void* load,
 // margin alone (f_max >= 1).  low, high, w_high and w_low are
 // ref.quantile_plan(T, 1 - f_max); floor is float32(delta_l - 1e-9).
 // scratch holds 2·T float32 words when T > 4096, else may be null.
+// Up to kRegT tokens the register kernel runs: its select counts ranks
+// up to count_max tokens, by shuffles within one warp when warp is set
+// and T <= 32, and runs select_digits above.
 extern "C" int dispatch_steer_launch(
     const void* cand, const void* vals, const void* load, void* experts,
     void* weights, void* steered, void* scratch, int T, int E, int k, int d,
     int mode, int low, int high, float w_high, float w_low, float delta_l,
-    float gate_slack, float floor_, void* stream) {
+    float gate_slack, float floor_, int count_max, int warp, void* stream) {
   if (T <= 0) return 0;
   if (T > kSteerSmemT && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || d < 1 || k + d > kMaxKD)
     return static_cast<int>(cudaErrorInvalidValue);
   SteerArgs a{static_cast<const int32_t*>(cand),
               static_cast<const float*>(vals),
@@ -523,10 +874,14 @@ extern "C" int dispatch_steer_launch(
               static_cast<float*>(scratch),
               T, E, k, d, mode, low, high,
               w_high, w_low, delta_l, gate_slack, floor_};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 8 && d <= 2 && T <= kRegT)
+    return launch_reg<8, 2, kRegT>(a, count_max, warp, st);
+  if (T <= kRegT)
+    return launch_reg<kMaxKD - 1, kMaxKD - 1, kRegT>(a, count_max, warp, st);
   const int threads = T < kMaxThreads ? round_up(T, 32) : kMaxThreads;
   size_t smem = static_cast<size_t>(round_up(E, 4)) * sizeof(float);
   if (T <= kSteerSmemT) smem += static_cast<size_t>(T) * 8;
-  dispatch_steer_kernel<<<1, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+  dispatch_steer_smem_kernel<<<1, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,9 +54,15 @@ DISPATCH_SOURCE = Path(__file__).resolve().parent / "csrc" / \
     "midas_dispatch.cu"
 MAX_E = 1024
 MAX_KD = 16  # k + d: the reference's limit, and 4 bits of a best alternate
-# dispatch_steer keeps 8 bytes a token in shared memory up to this many
-# tokens, beyond it in a scratch buffer (csrc kSteerSmemT)
+# dispatch_steer keeps a token in a thread's registers up to
+# STEER_REG_T tokens (csrc kRegT); beyond, 8 bytes a token in shared
+# memory up to STEER_SMEM_T tokens, beyond that in a scratch buffer
+# (kSteerSmemT)
+STEER_REG_T = 512
 STEER_SMEM_T = 4096
+# the register kernel's quantile counts ranks up to this many tokens and
+# runs the radix select above (kernel_steps.py times both)
+STEER_COUNT_MAX = 320
 
 
 def _lib() -> ctypes.CDLL:
@@ -85,7 +91,7 @@ def _dispatch_lib() -> ctypes.CDLL:
         lib.dispatch_fused_launch.restype = ctypes.c_int
         lib.dispatch_steer_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-            + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_float] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.dispatch_steer_launch.restype = ctypes.c_int
     return lib
 
@@ -427,6 +433,20 @@ def _steer_scalars(T: int, f_max: float, delta_l: float):
     return (1, *quantile_plan(T, 1.0 - f_max), floor)
 
 
+def steer_plan(T: int) -> Tuple[bool, int]:
+    """(warp, count_max) of ``dispatch_steer``'s register kernel at T
+    tokens: the quantile by shuffles within one warp at T <= 32, by
+    counting ranks up to ``count_max`` tokens, by the radix select
+    above; kernel_steps.py times other plans."""
+    return True, STEER_COUNT_MAX
+
+
+def steer_path(T: int) -> str:
+    """Which of ``dispatch_steer``'s kernels takes T tokens: "registers"
+    (a thread a token) or "shared memory"."""
+    return "registers" if T <= STEER_REG_T else "shared memory"
+
+
 def dispatch_steer(
     cand: torch.Tensor,
     vals: torch.Tensor,
@@ -474,6 +494,7 @@ def dispatch_steer(
                if T > STEER_SMEM_T else None)
     mode, low, high, w_high, w_low, floor = _steer_scalars(
         T, float(f_max), float(delta_l))
+    warp, count_max = steer_plan(T)
     lib = _dispatch_lib()
     with torch.cuda.device(dev):
         err = lib.dispatch_steer_launch(
@@ -481,7 +502,8 @@ def dispatch_steer(
             experts.data_ptr(), weights.data_ptr(), steered.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             T, E, k, kd - k, mode, low, high, w_high, w_low,
-            float(delta_l), float(gate_slack), floor, _stream(dev))
+            float(delta_l), float(gate_slack), floor, int(count_max),
+            int(warp), _stream(dev))
     if err != 0:
         raise RuntimeError(f"dispatch_steer launch failed: cudaError {err}")
     dispatch_steer.launches += 1

@@ -1,22 +1,31 @@
 """The algorithms of the CUDA dispatch kernels, on the CPU.
 
 ``csrc/midas_dispatch.cu`` selects a row's top-(k+d) by rank counting
-and finds the f_max quantile of ``dispatch_steer`` by a radix select.
-Neither can run here, so this file emulates both on the same layout
-(rows padded to float4s, a thread's elements e + m·cover; the select's
-8-bit digits, histograms, one-warp scan and early stop) and holds them
-against the plain functions they replace:
+and finds the f_max quantile of ``dispatch_steer`` by counting stable
+ranks among the benefits at or above the floor (by shuffles in one
+warp, or over each warp's slots in shared memory), or by a radix select
+above a crossover and beyond the register kernel's tokens.  None of it
+can run here, so this file emulates each on the same layout (rows
+padded to float4s, a thread's elements e + m·cover; each warp's values
+at or above the floor first and +inf after, read in float4s; the
+select's 8-bit digits, histograms, one-warp scan and early stop) and
+holds them against the plain functions they replace:
 
 - rank by counting against ``ref.top_candidates`` (ids and values bit
   for bit), with ties, E = 4, 16, 128 and 1024 and ragged T;
-- the radix select of ``s[low]`` and ``s[high]`` against ``torch.sort``
-  (bit for bit up to the sign of a zero), with -1e9 pads for
-  non-finite benefits, repeated values, +-0, T = 1 (no pass) and T = 2;
+- the radix select and the counting select of ``s[low]`` and
+  ``s[high]`` against ``torch.sort`` (bit for bit up to the sign of a
+  zero), with -1e9 pads for non-finite benefits, repeated values, +-0,
+  T = 1 (no pass) and T = 2, equal keys across the two ranks, and the
+  rule that lets a slot skip the select: when ``s[high]`` lies below
+  the floor, the interpolated quantile does not exceed it;
 - ``ref.quantile_plan`` with the double-rounded interpolation against
   ``ref.quantile``, bit for bit, and against ``jnp.quantile``;
-- the whole of ``dispatch_steer``'s slot loop against
-  ``ref.steer_from_candidates``: experts and steered bit for bit,
-  weights within 1e-6;
+- the whole of ``dispatch_steer``'s slot loop, the register kernel's
+  and the shared-memory kernel's, against
+  ``ref.steer_from_candidates`` and the live JAX reference: experts and
+  steered bit for bit, weights within 1e-6, at T = 31, 32, 33, 1024 and
+  1025 and on either side of the select's crossover;
 - and the property that f_max < 1 at T = 1 never steers, against the
   live JAX reference under skewed loads.
 
@@ -210,6 +219,191 @@ def test_radix_select_matches_sort(name, b, q):
 
 
 # ---------------------------------------------------------------------------
+# the register kernel's select (dispatch_steer up to STEER_REG_T tokens)
+# ---------------------------------------------------------------------------
+
+
+def quantile_values(b):
+    """What the quantile ranks: where(isfinite(b), b, -1e9)."""
+    return np.where(np.isfinite(b), b, np.float32(-1e9)).astype(np.float32)
+
+
+def warp_ranks(f, ge):
+    """T <= 32: each lane's stable rank among the values at or above the
+    floor, from the 32 shuffles of the kernel's warp path (+inf for a
+    value not ranked)."""
+    keys = np.full(32, np.float32(np.inf))
+    keys[:f.size] = np.where(ge, f, np.float32(np.inf))
+    x = f[:, None]
+    j, lane = np.arange(32)[None, :], np.arange(f.size)[:, None]
+    v = keys[None, :]
+    return ((v < x) | ((v == x) & (j < lane))).sum(1)
+
+
+def block_ranks(f, ge):
+    """Up to STEER_REG_T tokens: each warp writes its values at or above
+    the floor first (the ballot's prefix) and +inf after into its 32
+    slots; a ranked thread counts every slot of earlier warps with <=,
+    its own warp's by position, later warps' with < (+inf never
+    counts)."""
+    T = f.size
+    nt = -(-T // 32) * 32
+    nw = nt // 32
+    fp = np.full(nt, np.float32(-1e9))
+    fp[:T] = f
+    gp = np.zeros(nt, bool)
+    gp[:T] = ge
+    seg = np.full((nw, 32), np.float32(np.inf))
+    pos = np.zeros(nt, np.int64)
+    for w in range(nw):
+        lanes = gp[32 * w:32 * w + 32]
+        cw = int(lanes.sum())
+        above = np.cumsum(lanes) - lanes  # ranked lanes below this one
+        other = np.cumsum(~lanes) - ~lanes
+        p = np.where(lanes, above, cw + other)
+        assert sorted(p) == list(range(32))  # a stable partition
+        seg[w, p] = np.where(lanes, fp[32 * w:32 * w + 32], np.inf)
+        pos[32 * w:32 * w + 32] = p
+    vals = seg.reshape(-1)
+    wid = np.repeat(np.arange(nw), 32)
+    j = np.tile(np.arange(32), nw)
+    t = np.nonzero(gp)[0]
+    x, wt = fp[t][:, None], (t // 32)[:, None]
+    v = vals[None, :]
+    hit = np.where(wid[None, :] < wt, v <= x,
+                   np.where(wid[None, :] > wt, v < x,
+                            (v < x) | ((v == x)
+                                       & (j[None, :] < pos[t][:, None]))))
+    r = np.zeros(nt, np.int64)
+    r[t] = hit.sum(1)
+    return r[:T]
+
+
+def reg_select(b, low, high, floor, *, warp, count_max):
+    """The register kernel's s[low] and s[high], or None when s[high]
+    lies below the floor (the threshold is then the floor): only the G
+    values at or above the floor are ranked, at T - G and up; s[low]
+    below the floor is the largest value below it; beyond count_max
+    tokens, the radix select.  Returns (lo, hi, how)."""
+    f = quantile_values(b)
+    T = f.size
+    ge = f >= floor
+    G = int(ge.sum())
+    if G < T - high:
+        return None
+    if T > count_max and not warp:
+        lo, hi, _ = radix_select(f, low, high)
+        return lo, hi, "digits"
+    assert not warp or T <= 32
+    rank = T - G + (warp_ranks(f, ge) if warp else block_ranks(f, ge))
+    assert sorted(rank[ge]) == list(range(T - G, T))  # a permutation
+    hi = f[ge & (rank == high)]
+    assert hi.size == 1
+    if G >= T - low:
+        lo = f[ge & (rank == low)]
+        assert lo.size == 1
+        lo = lo[0]
+    else:  # G = T - high = T - low - 1: the warps' largest keys
+        lo = key_value(order_key(f[~ge]).max())
+    return lo, hi[0], "warp" if warp else "count"
+
+
+def select_floors(b):
+    """Floors that rank every value, about half of them, and none."""
+    f = quantile_values(b)
+    return (np.float32(-3e38), np.float32(np.median(f)), np.float32(2.0),
+            np.float32(np.max(f)), np.nextafter(np.max(f), np.float32(np.inf)))
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.75, 0.9, 1.0])
+@pytest.mark.parametrize("name,b", list(benefit_vectors()),
+                         ids=[n for n, _ in benefit_vectors()])
+def test_counting_select_matches_sort(name, b, q):
+    """The warp path (T <= 32) and the block path count the same stable
+    ranks; the values they return are torch.sort's, and a skipped select
+    is one whose quantile does not exceed the floor."""
+    n = b.shape[0]
+    low, high, w_high, w_low = ref.quantile_plan(n, q)
+    f = quantile_values(b)
+    s = torch.sort(torch.as_tensor(f)).values.numpy()
+    paths = [False] + ([True] if n <= 32 else [])
+    for floor in select_floors(b):
+        for warp in paths:
+            got = reg_select(b, low, high, floor, warp=warp, count_max=n)
+            if got is None:
+                assert s[high] < floor
+                assert interpolate(s[low], s[high], w_high, w_low) <= floor
+                continue
+            assert s[high] >= floor
+            lo, hi, how = got
+            assert how == ("warp" if warp else "count")
+            for g, want in ((lo, s[low]), (hi, s[high])):
+                assert g == want  # float equality: +-0 alike
+                if want != 0:
+                    assert g.view(np.uint32) == want.view(np.uint32)
+            # beyond the crossover the radix select gives the same values
+            assert reg_select(b, low, high, floor, warp=False,
+                              count_max=0)[:2] == (lo, hi)
+
+
+def near_floor_vectors(rng, n, floor):
+    """Benefits on and about the floor: the floor, its float neighbours,
+    a few ulps away, pads, far values."""
+    below = np.nextafter(floor, np.float32(-np.inf))
+    pool = np.array([floor, below, np.nextafter(floor, np.float32(np.inf)),
+                     np.nextafter(below, np.float32(-np.inf)), -np.inf,
+                     -1e9, floor - np.float32(1.0), floor * np.float32(0.5),
+                     -floor, 0.0, -0.0], np.float32)
+    b = rng.choice(pool, n)
+    mix = rng.random(n) < 0.3
+    b[mix] = (floor + rng.standard_normal(mix.sum()) * 2.0 ** int(
+        rng.integers(-24, 4)) * max(abs(floor), 1e-30)).astype(np.float32)
+    return b.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_below_floor_quantile_never_exceeds_the_floor(seed):
+    """The select is skipped when s[high] lies below the floor: then
+    lo <= hi < floor, and the interpolation rounded as the kernel rounds
+    it (the product and the sum in double) lands at or below the floor,
+    on values a few ulps from it, with q's from 0 to 1 (positions below
+    1 among them, where w_high + w_low is 1 only to float32's
+    precision), at floors of either sign."""
+    rng = np.random.default_rng(seed)
+    for floor in (np.float32(2.0), np.float32(2.0 - 1e-9 * seed),
+                  np.float32(-1e-9), np.float32(0.5), np.float32(-3.0),
+                  np.float32(1e-30), np.float32(1024.0)):
+        for _ in range(40):
+            n = int(rng.integers(1, 80))
+            b = near_floor_vectors(rng, n, floor)
+            s = np.sort(quantile_values(b))
+            for q in (rng.random(), 0.75, 0.5, 1.0 / n, 0.999, 0.0, 1.0):
+                low, high, w_high, w_low = ref.quantile_plan(n, q)
+                if s[high] < floor:
+                    assert interpolate(s[low], s[high], w_high, w_low) <= floor
+                    assert reg_select(b, low, high, floor, warp=False,
+                                      count_max=n) is None
+
+
+def test_equal_keys_across_low_and_high():
+    """Equal values straddle ranks low and high (and the floor): the
+    stable ranks give each rank one writer, in both paths."""
+    for T, q in ((32, 0.75), (31, 0.5), (33, 0.75), (512, 0.75),
+                 (1024, 0.9)):
+        low, high, w_high, w_low = ref.quantile_plan(T, q)
+        b = np.full(T, np.float32(3.0))
+        b[:low - 2] = -np.inf
+        b[T - 2:] = 7.0
+        b[::7] = 2.0  # on the floor
+        s = np.sort(quantile_values(b))
+        assert s[low] == s[high] or s[high] == 3.0
+        for warp in ([True, False] if T <= 32 else [False]):
+            lo, hi, _ = reg_select(b, low, high, np.float32(2.0), warp=warp,
+                                   count_max=T)
+            assert (lo, hi) == (s[low], s[high])
+
+
+# ---------------------------------------------------------------------------
 # the quantile's plan and rounding
 # ---------------------------------------------------------------------------
 
@@ -292,20 +486,44 @@ def test_quantile_plan_is_what_ref_quantile_interpolates():
     assert ref.quantile_plan(1, 0.75) == (0, 0, 0.0, 1.0)
 
 
+def test_one_token_threshold_is_its_value():
+    """At T = 1 the register kernel takes the token's own value f as the
+    quantile (no shuffle): the plan is (0, 0, 0, 1) at every q, and the
+    double-rounded interpolation of (f, f) is f, bit for bit, -0.0,
+    subnormals and the -1e9 pad included."""
+    rng = np.random.default_rng(3)
+    f = np.concatenate([(rng.standard_normal(2000) * 10.0 ** rng.integers(
+        -40, 38, 2000)).astype(np.float32),
+        np.array([0.0, -0.0, -1e9, 1e-45, -3e38], np.float32)])
+    for q in (0.0, 0.1, 0.25, 0.5, 0.75, 0.999, 1.0):
+        assert ref.quantile_plan(1, q) == (0, 0, 0.0, 1.0)
+    for x in f:
+        assert interpolate(x, x, 0.0, 1.0).view(np.uint32) == \
+            np.float32(x).view(np.uint32)
+
+
 # ---------------------------------------------------------------------------
 # dispatch_steer's slot loop, whole
 # ---------------------------------------------------------------------------
 
 
 def emulate_steer(cand, vals, load, k, *, delta_l=2.0, gate_slack=1.0,
-                  f_max=1.0):
-    """dispatch_steer on numpy float32: each slot's benefit and best
-    alternate per token, the radix-selected quantile threshold, the
-    steer, and the softmax of the chosen logits."""
+                  f_max=1.0, count_max=None, warp=True, stats=None):
+    """dispatch_steer on numpy float32, on the kernel the launcher picks
+    (``kernel.steer_path``): each slot's benefit and best alternate per
+    token, the threshold, the steer, and the softmax of the chosen
+    logits.  The register kernel's threshold comes from ``reg_select``
+    (``count_max``: the wrapper's crossover; ``warp``: its plan at T <=
+    32), the shared-memory kernel's from the radix select once a benefit
+    exceeds the floor.  ``stats`` counts the selects by kind."""
     T, kd = cand.shape
     d = kd - k
+    on_regs = kernel.steer_path(T) == "registers"
+    count_max = kernel.STEER_COUNT_MAX if count_max is None else count_max
+    stats = {} if stats is None else stats
     dl, slack = np.float32(delta_l), np.float32(gate_slack)
     floor = np.float32(delta_l - 1e-9)
+    low, high, w_high, w_low = ref.quantile_plan(T, 1.0 - f_max)
     rows = np.arange(T)
     used = np.zeros((T, d), bool)
     experts = np.zeros((T, k), np.int32)
@@ -326,11 +544,22 @@ def emulate_steer(cand, vals, load, k, *, delta_l=2.0, gate_slack=1.0,
                 steer = has & (benefit >= dl)
             elif f_max <= 0.0:
                 steer = np.zeros(T, bool)
-            elif not (benefit > floor).any():  # the select is skipped
-                steer = np.zeros(T, bool)
             else:
-                q = kernel_quantile(benefit, 1.0 - f_max)
-                steer = has & (benefit > (floor if q < floor else q))
+                thr, how = floor, None
+                if on_regs:
+                    got = reg_select(benefit, low, high, floor,
+                                     warp=warp and T <= 32,
+                                     count_max=count_max)
+                    if got is not None:
+                        lo, hi, how = got
+                elif (benefit > floor).any():
+                    lo, hi, _ = radix_select(benefit, low, high)
+                    how = "digits"
+                if how is not None:
+                    q = interpolate(lo, hi, w_high, w_low)
+                    thr = floor if q < floor else q
+                    stats[how] = stats.get(how, 0) + 1
+                steer = has & (benefit > thr)
         src = np.where(steer, k + best, i)
         experts[:, i] = cand[rows, src]
         chosen[:, i] = vals[rows, src]
@@ -420,3 +649,98 @@ def test_one_token_at_fmax_below_one_never_steers(seed, f_max):
     _, _, s1 = jref.midas_dispatch(jnp.asarray(logits), jnp.asarray(load),
                                    k, d, f_max=1.0)
     assert np.asarray(s1).any()
+
+
+def hot_inputs(T, E, k, seed, ties=False):
+    """Logits whose top k + d come in about the same order for every
+    token (experts 0, 1, ... within the gate slack of each other) and a
+    load hot on the first k experts and cooler after: most tokens have a
+    benefit over the floor in the first slots, so the quantile's select
+    runs.  ``ties`` rounds the load to integers: many equal benefits,
+    some on the floor."""
+    rng = np.random.default_rng(seed)
+    logits = (-0.05 * np.arange(E)[None, :]
+              + 0.02 * rng.standard_normal((T, E))).astype(np.float32)
+    load = np.where(np.arange(E) < k, 6.0 + np.abs(rng.standard_normal(E)),
+                    np.abs(rng.standard_normal(E)) * 3.0)
+    if ties:
+        load = np.round(load)
+    return logits, load.astype(np.float32)
+
+
+def assert_steer_equal(got, want):
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2], np.asarray(want[2]))
+    np.testing.assert_allclose(got[1], np.asarray(want[1]), **W_TOL)
+
+
+# (T, E, k, d, the kernel): one warp, one warp's edges, a block's, the
+# select's crossover, the register kernel's last token and the
+# shared-memory kernel's first, k + d = 16 with E = 1024, 1024 and 1025
+EDGE_CASES = [
+    (31, 128, 8, 2, "registers"), (32, 128, 8, 2, "registers"),
+    (33, 128, 8, 2, "registers"),
+    (kernel.STEER_COUNT_MAX, 128, 8, 2, "registers"),
+    (kernel.STEER_COUNT_MAX + 1, 128, 8, 2, "registers"),
+    (512, 128, 8, 2, "registers"), (513, 128, 8, 2, "shared memory"),
+    (200, 1024, 12, 4, "registers"), (512, 1024, 12, 4, "registers"),
+    (513, 64, 12, 4, "shared memory"),
+    (1024, 128, 8, 2, "shared memory"), (1025, 128, 8, 2, "shared memory"),
+]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("T,E,k,d,path", EDGE_CASES)
+def test_steer_emulation_at_the_design_edges(T, E, k, d, path, ties):
+    assert kernel.steer_path(T) == path
+    how = ("warp" if T <= 32 else "count" if T <= kernel.STEER_COUNT_MAX
+           else "digits")
+    logits, load = hot_inputs(T, E, k, T + E, ties)
+    cand, vals = ref.top_candidates(torch.as_tensor(logits), k + d)
+    for f_max in (0.25, 0.5):
+        stats = {}
+        got = emulate_steer(cand.numpy(), vals.numpy(), load, k,
+                            f_max=f_max, stats=stats)
+        want = ref.steer_from_candidates(cand, vals, torch.as_tensor(load), k,
+                                         f_max=f_max)
+        assert_steer_equal(got, [w.numpy() for w in want])
+        assert stats.get(how, 0) > 0 and got[2].any()
+
+
+@pytest.mark.parametrize("T,count_max,how", [
+    (320, 319, "digits"), (320, 320, "count"), (321, 320, "digits"),
+    (319, 320, "count"), (31, 0, "warp"), (33, 32, "digits")])
+def test_steer_emulation_on_either_side_of_the_crossover(T, count_max, how):
+    """Up to the crossover (count_max tokens) the register kernel counts
+    ranks, beyond it runs the radix select, and one warp shuffles
+    whatever the crossover: the same steers either way."""
+    E, k = 64, 8
+    logits, load = hot_inputs(T, E, k, 3, ties=True)
+    cand, vals = ref.top_candidates(torch.as_tensor(logits), k + 2)
+    want = ref.steer_from_candidates(cand, vals, torch.as_tensor(load), k,
+                                     f_max=0.25)
+    stats = {}
+    got = emulate_steer(cand.numpy(), vals.numpy(), load, k, f_max=0.25,
+                        count_max=count_max, stats=stats)
+    assert_steer_equal(got, [w.numpy() for w in want])
+    assert set(stats) == {how}
+
+
+@pytest.mark.parametrize("T,k,d,f_max", [(1, 8, 2, 0.25), (31, 8, 2, 0.3),
+                                         (33, 8, 2, 0.25), (200, 4, 2, 0.5),
+                                         (96, 12, 4, 0.75)])
+def test_register_emulation_matches_the_jax_reference(T, k, d, f_max):
+    """The register kernel's algorithm against the live JAX
+    ``steer_from_candidates`` on batches whose selects run (one warp,
+    both paths' edges, tied benefits on the floor)."""
+    logits, load = hot_inputs(T, 64, k, T, ties=True)
+    cand, vals = ref.top_candidates(torch.as_tensor(logits), k + d)
+    want = jref.steer_from_candidates(jnp.asarray(cand.numpy()),
+                                      jnp.asarray(vals.numpy()),
+                                      jnp.asarray(load), k, f_max=f_max)
+    stats = {}
+    got = emulate_steer(cand.numpy(), vals.numpy(), load, k, f_max=f_max,
+                        stats=stats)
+    assert_steer_equal(got, want)
+    assert any(stats.get(how) for how in ("warp", "count"))
+    assert T == 1 or got[2].any()

@@ -49,8 +49,12 @@ d 2, a 512-token prompt and one decode token), and under other
 rows a block than the wrapper's plan; ``dispatch_steer`` the same on
 ``ref.steer_from_candidates`` over the same candidates, at every
 f_max (0, below 1 and 1), one token (which never steers below f_max
-1), infinite loads, 1024 and 4096 tokens (the most whose state stays
-in shared memory) and 4097 and 5000 (state in a scratch buffer).  At
+1), infinite loads, loads under which most benefits clear the floor (so
+its quantile selects, with and without equal benefits), the edges of its
+register kernel (31, 32, 33, 512 and 513 tokens) and of its select's
+crossover (319-321), k + d = 16 at E = 1024, 1024 and 4096 tokens (the
+most whose state stays in shared memory) and 4097 and 5000 (state in a
+scratch buffer), and under other select plans than the wrapper's.  At
 f_max < 1 ``ops.midas_dispatch`` is one launch of each pass and no
 other device kernel but allocator fills (torch.profiler).
 
@@ -1064,7 +1068,7 @@ MR_SHAPES = [
 ]
 
 
-def _dispatch_inputs(T, E, seed, variant):
+def _dispatch_inputs(T, E, seed, variant, k=8):
     rng = np.random.default_rng(seed)
     logits = rng.standard_normal((T, E), np.float32) * 2.0
     load = np.abs(rng.standard_normal(E).astype(np.float32)) * 3.0
@@ -1073,6 +1077,17 @@ def _dispatch_inputs(T, E, seed, variant):
         load = np.round(load)
     if variant == "balanced":  # what serving sees: nothing steers
         load = np.ones(E, np.float32)
+    if variant.startswith("hot"):
+        # every token ranks experts 0, 1, ... about alike, within the
+        # gate slack, and the load is hot on the first k: most benefits
+        # clear the floor, so dispatch_steer's quantile selects; "hot
+        # ties" rounds the load (equal benefits, some on the floor)
+        logits = (-0.05 * np.arange(E)[None, :]
+                  + 0.02 * rng.standard_normal((T, E)))
+        load = np.where(np.arange(E) < k, 6.0 + np.abs(
+            rng.standard_normal(E)), np.abs(rng.standard_normal(E)) * 3.0)
+        if variant == "hot ties":
+            load = np.round(load)
     return (torch.as_tensor(logits.astype(np.float32)).cuda(),
             torch.as_tensor(load.astype(np.float32)).cuda())
 
@@ -1141,13 +1156,22 @@ def test_cuda_dispatch_kernels_reject_what_they_do_not_take():
 
 
 # (T, E, k, d, f_max) for dispatch_steer beyond MR_SHAPES' f_max < 1
-# cases: one decode token, f_max 0 and 1, and state beyond shared memory
+# cases: one decode token, f_max 0 and 1, and state beyond shared memory;
+# the register kernel's edges: one warp (31, 32) and a block (33), its
+# select's crossover (kernel.STEER_COUNT_MAX = 320 tokens) +- 1, its last
+# token (512) and the shared-memory kernel's first (513, and 1025), k + d
+# = 16 at E = 1024 and at E = 16
 STEER_SHAPES = [shape for shape in MR_SHAPES if shape[4] < 1.0] + [
     (1, 16, 4, 2, 0.25), (2, 16, 4, 2, 0.5), (300, 16, 4, 2, 0.0),
     (300, 16, 4, 2, 1.0), (1, 128, 8, 2, 0.5), (1024, 128, 8, 2, 0.25),
     (4096, 128, 8, 2, 0.25), (4097, 16, 4, 2, 0.75),
     (5000, 128, 8, 2, 0.25),
+    (31, 128, 8, 2, 0.25), (32, 128, 8, 2, 0.25), (33, 128, 8, 2, 0.5),
+    (319, 128, 8, 2, 0.25), (320, 128, 8, 2, 0.25), (321, 128, 8, 2, 0.25),
+    (1025, 128, 8, 2, 0.25), (513, 128, 8, 2, 0.25), (512, 1024, 12, 4, 0.25),
+    (513, 1024, 12, 4, 0.25), (300, 16, 8, 8, 0.5), (64, 1024, 15, 1, 0.9),
 ]
+STEER_VARIANTS = ("random", "ties", "balanced", "infs", "hot", "hot ties")
 
 
 @pytest.mark.requires_cuda
@@ -1159,9 +1183,10 @@ def test_cuda_dispatch_steer_matches_plain_version():
     before = kernel.dispatch_steer.launches
     calls = steered = 0
     for (T, E, k, d, f_max), variant in itertools.product(
-            STEER_SHAPES, ("random", "ties", "balanced", "infs")):
+            STEER_SHAPES, STEER_VARIANTS):
         logits, load = _dispatch_inputs(T, E, T + E + k + d, variant
-                                        if variant != "infs" else "random")
+                                        if variant != "infs" else "random",
+                                        k)
         if variant == "infs":
             load[::5] = float("inf")
         what = str((T, E, k, d, f_max, variant))
@@ -1180,6 +1205,41 @@ def test_cuda_dispatch_steer_matches_plain_version():
                                                      and variant != "infs"):
             assert not got[2].any(), what
         steered += int(got[2].sum())
+    assert steered > 0
+    assert kernel.dispatch_steer.launches == before + calls
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("plan", [(False, 1 << 30), (True, 0), (False, 0),
+                                  (True, 40)])
+def test_cuda_dispatch_steer_select_plans(plan, monkeypatch):
+    """Other select plans than the wrapper's (no warp path at T <= 32;
+    the radix select whatever the count; a crossover at 40 ranked
+    values) steer the same, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.midas_route import kernel
+
+    monkeypatch.setattr(kernel, "steer_plan", lambda T: plan)
+    before = kernel.dispatch_steer.launches
+    calls = steered = 0
+    for T, variant in itertools.product(
+            (1, 2, 31, 32, 33, 100, 512, 1024), ("hot", "hot ties")):
+        logits, load = _dispatch_inputs(T, 128, T, variant)
+        cand, vals = kernel.dispatch_candidates(logits, 10)
+        for f_max in (0.25, 0.6):
+            got = kernel.dispatch_steer(cand, vals, load, 8, f_max=f_max)
+            want = ref.steer_from_candidates(cand, vals, load, 8,
+                                             f_max=f_max)
+            torch.cuda.synchronize()
+            calls += 1
+            what = str((T, variant, f_max, plan))
+            assert torch.equal(got[0], want[0]), what
+            assert torch.equal(got[2], want[2]), what
+            np.testing.assert_allclose(got[1].cpu().numpy(),
+                                       want[1].cpu().numpy(), rtol=0,
+                                       atol=1e-6, err_msg=what)
+            steered += int(got[2].sum())
     assert steered > 0
     assert kernel.dispatch_steer.launches == before + calls
 
